@@ -1,0 +1,116 @@
+"""Build the CUDA kernels in ``csrc/`` with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so a
+build takes seconds. It is compiled at first use into ``build/`` at the root
+of the checkout, under a name that carries a hash of its source and flags, so
+an edited source is never served from a stale library. ``build_all`` starts one
+``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+
+# -fmad=false: both kernels mirror f32 decisions of the JAX kernels (the
+# emit cull margin, the power > 0 and alpha < 1/255 cutoffs); contracting a
+# multiply and an add into one FMA would round differently from the plain
+# PyTorch versions and can move a tile across the cull margin.
+# No --use_fast_math: 1/x and expf stay IEEE.
+_COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+
+# name -> (source file, C entry points with their ctypes argument types)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNELS = {
+    "emit": ("emit.cu", {
+        # attrs, rank, out, n_pad, k_budget, tiles_x, n_tiles, mult, stream
+        "sage3d_emit_tile_keys": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    }),
+    "composite_fwd": ("composite_fwd.cu", {
+        # attrs, pair_gauss, tile_start, tile_count, out, kend, n_tiles,
+        # tiles_x, n_gauss, n_pairs, stream
+        "sage3d_composite_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    }),
+}
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(_COMMON_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def _start(name: str):
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_COMMON_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT), tmp, out
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{log.decode(errors='replace')}")
+    os.replace(tmp, out)
+
+
+def build_all() -> dict:
+    """Compile every kernel not built yet, one ``nvcc`` per source, all in
+    parallel. Returns the wall seconds spent, per kernel (0 where cached)."""
+    t0 = time.perf_counter()
+    jobs = {name: _start(name) for name in KERNELS}
+    seconds = {}
+    for name, job in jobs.items():
+        if job is not None:
+            _finish(name, job)
+        seconds[name] = time.perf_counter() - t0 if job is not None else 0.0
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    job = _start(name)
+    if job is not None:
+        _finish(name, job)
+    lib = ctypes.CDLL(str(_target(name)))
+    for fn, argtypes in KERNELS[name][1].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

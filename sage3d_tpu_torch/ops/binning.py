@@ -1,0 +1,443 @@
+"""Tile binning: turn projected Gaussians into per-tile depth-ordered work lists.
+
+PyTorch counterpart of ``sage3d_tpu/ops/binning.py``, same algorithm and
+contracts:
+
+  1. Each visible Gaussian gets a depth RANK (front-to-back, ties broken by
+     index — the oracle's stable order) from a stable argsort.
+  2. Every Gaussian emits up to ``k_small`` candidate (tile, Gaussian) keys
+     from its tight AABB tile rect; the ``m_big`` largest spanners emit up to
+     ``k_big``, and an optional mid tier up to ``k_mid``. Each candidate is
+     culled by the exact ellipse-tile test. Emission is kernel K1
+     (``csrc/emit.cu``); ``emit_tile_keys_plain`` is its plain version.
+  3. Keys are ``tile * 2^rank_bits + rank`` in int32 (INT32_MAX when culled).
+     The slots K1 kept are compacted out of its padded (k, n) output, and one
+     sort orders them per tile front to back. When the fused key cannot fit
+     int32 (more than 2047 tiles, e.g. 4K frames) the binning sorts on the
+     pair (tile, rank) instead.
+  4. Per-tile [start, count) ranges come from a searchsorted over T queries.
+
+The JAX package sorts the whole padded emission array (static shapes); here
+only the kept pairs are sorted, so ``pair_gauss`` holds exactly ``n_pairs``
+entries and the per-tile lists are the same. Pairs dropped by the emission
+budgets are counted in ``overflow`` — never silently lost. Indices carry no
+gradient.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import _build
+from .projection import ALPHA_MIN, ProjectedGaussians
+
+TILE_W = 32
+TILE_H = 32
+
+RANK_BITS = 20            # least depth-rank field width of the fused key
+K1_DEFAULT = 16           # candidate entries per ordinary Gaussian
+M_BIG_DEFAULT = 8192      # large-spanning Gaussians given extended budgets
+K2_DEFAULT = 256          # entries per large Gaussian
+INVALID_KEY = 2**31 - 1
+SUGGEST_THRESHOLDS = (4, 8, 16, 32, 64, 128)
+# the budgets dict keys that are bin_gaussians' keyword arguments
+EMIT_BUDGET_KEYS = ("k_small", "m_big", "k_big", "m_mid", "k_mid")
+
+EMIT_GB = 1024  # emission columns are padded to a multiple of this (as in the
+                # JAX package), so K1 sees the same table shapes there
+COMPACT_STEP = 1 << 30   # most slots one compaction pass scans (int32-indexed)
+ATTR_ROWS = 16  # emission attr table rows:
+                # [x0, y0, nx, count_eff, mx, my, cut2, rank(bitcast),
+                #  conic_a, conic_b, conic_c, 5 x pad]
+
+
+class TileBins(NamedTuple):
+    pair_gauss: torch.Tensor   # (P,) int32 gaussian index per pair, depth-ordered per tile
+    tile_start: torch.Tensor   # (T,) int32 first pair index of each tile
+    tile_count: torch.Tensor   # (T,) int32 number of pairs of each tile
+    n_pairs: torch.Tensor      # () int32 total valid pairs
+    overflow: torch.Tensor     # () int32 pairs dropped by the K1/K2/M budgets
+    tiles_x: int
+    tiles_y: int
+
+
+def num_tiles(width: int, height: int, tile_w: int = TILE_W,
+              tile_h: int = TILE_H):
+    return -(-width // tile_w), -(-height // tile_h)
+
+
+def _tile_rect(proj: ProjectedGaussians, tiles_x: int, tiles_y: int):
+    """Tight per-Gaussian tile rect from the per-axis AABB extents. Returns
+    (vis, x0, y0, nx, count, mx, my)."""
+    means2d = proj.means2d.detach()
+    mx = means2d[:, 0]
+    my = means2d[:, 1]
+    ex = proj.extents[:, 0].detach()
+    ey = proj.extents[:, 1].detach()
+    vis = proj.visible & (proj.radii > 0)
+
+    def cell(v, size, hi):
+        return torch.clamp(torch.floor(v / size), 0, hi - 1).to(torch.int32)
+
+    x0 = cell(mx - ex, TILE_W, tiles_x)
+    x1 = cell(mx + ex, TILE_W, tiles_x)
+    y0 = cell(my - ey, TILE_H, tiles_y)
+    y1 = cell(my + ey, TILE_H, tiles_y)
+    nx = x1 - x0 + 1
+    count = torch.where(vis, nx * (y1 - y0 + 1), 0)
+    return vis, x0, y0, nx, count, mx, my
+
+
+# ---------------------------------------------------------------------------
+# K1: tile-key emission
+# ---------------------------------------------------------------------------
+
+def emit_tile_keys_plain(attrs: torch.Tensor, rank: torch.Tensor,
+                         k_budget: int, tiles_x: int, n_tiles: int,
+                         mult: int) -> torch.Tensor:
+    """Plain PyTorch version of K1, operation for operation: (k_budget, n)
+    int32 keys (``mult`` > 0) or tile ids (``mult`` == 0), k-major."""
+    x0, y0, nx, count, mx, my, cut2 = (attrs[i:i + 1] for i in range(7))
+    ca, cb, cc = attrs[8:9], attrs[9:10], attrs[10:11]
+    kf = torch.arange(k_budget, dtype=torch.float32,
+                      device=attrs.device)[:, None]
+    nxs = torch.clamp(nx, min=1.0)   # padded columns carry nx=0 (and count=0)
+    inv = 1.0 / nxs
+    q = torch.floor(kf * inv)
+    r = kf - q * nxs
+    q = torch.where(r < 0, q - 1.0, torch.where(r >= nxs, q + 1.0, q))
+    r = kf - q * nxs
+    tx = x0 + r
+    ty = y0 + q
+    x_lo = tx * float(TILE_W) - mx
+    x_hi = x_lo + float(TILE_W)
+    y_lo = ty * float(TILE_H) - my
+    y_hi = y_lo + float(TILE_H)
+    inside = (x_lo <= 0.0) & (x_hi >= 0.0) & (y_lo <= 0.0) & (y_hi >= 0.0)
+    inv_a = 1.0 / torch.clamp(ca, min=1e-20)
+    inv_c = 1.0 / torch.clamp(cc, min=1e-20)
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    def vedge(xe):   # min over y' in [y_lo, y_hi] at fixed x' = xe
+        t = clip(-cb * xe * inv_c, y_lo, y_hi)
+        return (ca * xe) * xe + (2.0 * cb * xe + cc * t) * t
+
+    def hedge(ye):   # min over x' in [x_lo, x_hi] at fixed y' = ye
+        t = clip(-cb * ye * inv_a, x_lo, x_hi)
+        return (cc * ye) * ye + (2.0 * cb * ye + ca * t) * t
+
+    m2 = torch.minimum(torch.minimum(vedge(x_lo), vedge(x_hi)),
+                       torch.minimum(hedge(y_lo), hedge(y_hi)))
+    m2 = torch.where(inside, 0.0, m2)
+    # 1e-3 relative+absolute margin >> f32 rounding of this ~10-op chain:
+    # over-keeps a hair's width of tiles, never drops a contributing pair.
+    valid = (kf < count) & (m2 <= cut2 * 1.001 + 1e-3)
+    tid = (ty * float(tiles_x) + tx).to(torch.int32)
+    if mult:
+        return torch.where(valid, tid * mult + rank[None, :], INVALID_KEY)
+    return torch.where(valid, tid, n_tiles)
+
+
+def emit_tile_keys(attrs: torch.Tensor, rank: torch.Tensor, k_budget: int,
+                   tiles_x: int, n_tiles: int, mult: int) -> torch.Tensor:
+    """K1 wrapper. ``attrs``: (ATTR_ROWS, n) float32, ``rank``: (n,) int32,
+    both contiguous on one device. A CPU tensor takes the plain version; a
+    CUDA tensor launches ``csrc/emit.cu``."""
+    if attrs.dim() != 2 or attrs.shape[0] != ATTR_ROWS:
+        raise ValueError(f"attrs must be ({ATTR_ROWS}, n), got {tuple(attrs.shape)}")
+    n = attrs.shape[1]
+    if attrs.dtype != torch.float32 or rank.dtype != torch.int32:
+        raise TypeError("emit_tile_keys takes float32 attrs and int32 ranks")
+    if rank.shape != (n,) or rank.device != attrs.device:
+        raise ValueError("rank must be (n,) on the device of attrs")
+    if attrs.device.type == "cpu":
+        return emit_tile_keys_plain(attrs, rank, k_budget, tiles_x, n_tiles,
+                                    mult)
+    if attrs.device.type != "cuda":
+        raise ValueError(f"emit_tile_keys: unsupported device {attrs.device}")
+    if not (attrs.is_contiguous() and rank.is_contiguous()):
+        raise ValueError("emit_tile_keys: inputs must be contiguous")
+    if not 0 < k_budget < 2**31 or n >= 2**31:
+        raise ValueError(f"emit_tile_keys: k_budget {k_budget} or n {n} "
+                         "outside int32")
+    out = torch.empty((k_budget, n), dtype=torch.int32, device=attrs.device)
+    lib = _build.load("emit")
+    with torch.cuda.device(attrs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sage3d_emit_tile_keys(
+            attrs.data_ptr(), rank.data_ptr(), out.data_ptr(), n, k_budget,
+            tiles_x, n_tiles, mult, stream)
+    _build.check(err, "emit_tile_keys")
+    emit_tile_keys.launches += 1
+    return out
+
+
+emit_tile_keys.launches = 0
+
+
+class EmitTier(NamedTuple):
+    """One emission tier, as K1 takes it: ``attrs`` (ATTR_ROWS, n_pad)
+    float32 with the slot count in row 3, ``rank`` and ``gauss`` (n_pad,)
+    int32 per column, ``k_budget`` slots per Gaussian. Columns are padded to
+    a multiple of EMIT_GB with count 0, as in the JAX package."""
+    attrs: torch.Tensor
+    rank: torch.Tensor
+    gauss: torch.Tensor
+    k_budget: int
+
+
+class EmissionPlan(NamedTuple):
+    tiers: list           # [EmitTier]: small, (mid,) big
+    tiles_x: int
+    tiles_y: int
+    mult: int             # 2^rank_bits for the fused key, 0 for two keys
+    overflow: torch.Tensor   # () int64 pairs dropped by the budgets
+
+
+def _tier(rows: torch.Tensor, count_eff: torch.Tensor, rank: torch.Tensor,
+          gauss: torch.Tensor, k_budget: int) -> EmitTier:
+    n = rows.shape[0]
+    gb = min(EMIT_GB, max(128, n))
+    n_pad = -(-n // gb) * gb
+    attrs = torch.zeros((ATTR_ROWS, n_pad), dtype=torch.float32,
+                        device=rows.device)
+    attrs[:rows.shape[1], :n] = rows.T
+    attrs[3, :n] = count_eff
+
+    def col(v):
+        out = torch.zeros((n_pad,), dtype=torch.int32, device=rows.device)
+        out[:n] = v
+        return out
+
+    return EmitTier(attrs, col(rank), col(gauss), k_budget)
+
+
+def emission_plan(
+    proj: ProjectedGaussians,
+    width: int,
+    height: int,
+    k_small: int = K1_DEFAULT,
+    m_big: int = M_BIG_DEFAULT,
+    k_big: int = K2_DEFAULT,
+    m_mid: int = 0,
+    k_mid: int = 0,
+) -> EmissionPlan:
+    """Everything ``bin_gaussians`` hands to K1: depth ranks, the tight tile
+    rects, the tier selection, the emission tables and the overflow count."""
+    dev = proj.depths.device
+    tiles_x, tiles_y = num_tiles(width, height)
+    n_tiles = tiles_x * tiles_y
+    n = proj.depths.shape[0]
+    rank_bits = min(((2**31 - 1) // max(n_tiles, 1)).bit_length() - 1, 31)
+    fused_ok = rank_bits >= RANK_BITS and n <= (1 << rank_bits)
+    m_big = max(min(m_big, n), 1)
+
+    depths = proj.depths.detach()
+    inf = torch.tensor(float("inf"), device=dev)
+
+    # 1. Depth ranks (front-to-back, ties by index): the inverse of a stable
+    # argsort.
+    order = torch.argsort(torch.where(proj.visible, depths, inf), stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=dev)
+    rank = rank.to(torch.int32)
+
+    # 2. Tile rect per Gaussian.
+    vis, x0, y0, nx, count, mx, my = _tile_rect(proj, tiles_x, tiles_y)
+
+    small = count <= k_small
+    use_mid = m_mid > 0 and k_mid > k_small
+    m_mid = max(min(m_mid, n), 1) if use_mid else 1
+
+    # Large spanners: top m_big by count (stable, ties by index).
+    big_floor = k_mid if use_mid else k_small
+    big_score = torch.where(vis & (count > big_floor), count, -1)
+    big_idx = torch.argsort(-big_score, stable=True)[:m_big]
+    big_sel = big_score[big_idx] > 0
+    if use_mid:
+        mid_score = torch.where(vis & ~small & (count <= k_mid), count, -1)
+        mid_idx = torch.argsort(-mid_score, stable=True)[:m_mid]
+        mid_sel = mid_score[mid_idx] > 0
+
+    # The (n, ATTR_ROWS) attribute rows of every Gaussian; the int32 rank
+    # rides the f32 table as its bit pattern. cut2 is the opacity-aware
+    # alpha cutoff the exact ellipse cull tests against.
+    cut2 = 2.0 * torch.log(
+        torch.clamp(proj.opacities.detach(), min=ALPHA_MIN) / ALPHA_MIN)
+    conics = proj.conics.detach()
+    rows = torch.stack([
+        x0.to(torch.float32), y0.to(torch.float32),
+        nx.to(torch.float32), count.to(torch.float32), mx, my, cut2,
+        rank.view(torch.float32),
+        conics[:, 0], conics[:, 1], conics[:, 2],
+    ], dim=1)                                              # (n, 11)
+
+    count_small = torch.where(vis & small, torch.clamp(count, max=k_small),
+                              0).to(torch.float32)
+    tiers = [_tier(rows, count_small, rank,
+                   torch.arange(n, dtype=torch.int32, device=dev), k_small)]
+    if use_mid:
+        rows_mid = rows[mid_idx]
+        count_mid = torch.where(mid_sel, rows_mid[:, 3], 0.0)  # <= k_mid by sel
+        tiers.append(_tier(rows_mid, count_mid, rank[mid_idx], mid_idx, k_mid))
+    rows_big = rows[big_idx]
+    count_big = torch.where(big_sel, torch.clamp(rows_big[:, 3],
+                                                 max=float(k_big)), 0.0)
+    tiers.append(_tier(rows_big, count_big, rank[big_idx], big_idx, k_big))
+
+    # Overflow accounting (conservative: AABB counts, pre-cull): big Gaussians
+    # clipped at k_big, plus spanners not covered by the big or mid tier.
+    count64 = count.to(torch.int64)
+    count_b = count64[big_idx]
+    clipped_big = torch.sum(torch.where(big_sel,
+                                        torch.clamp(count_b - k_big, min=0), 0))
+    covered = torch.sum(torch.where(big_sel, count_b, 0))
+    if use_mid:
+        covered = covered + torch.sum(torch.where(mid_sel, count64[mid_idx], 0))
+    dropped_whole = torch.sum(torch.where(vis & ~small, count64, 0)) - covered
+    return EmissionPlan(tiers, tiles_x, tiles_y,
+                        (1 << rank_bits) if fused_ok else 0,
+                        clipped_big + dropped_whole)
+
+
+def _kept_slots(keys: torch.Tensor, invalid: int):
+    """The slots of one tier's (k, n_pad) K1 output that were kept, in
+    k-major order: (keys, column). A 4K frame's big tier can hold 2^31
+    slots, so the scan goes in passes of at most COMPACT_STEP slots."""
+    n_pad = keys.shape[1]
+    rows = max(1, COMPACT_STEP // max(n_pad, 1))
+    kept, cols = [], []
+    for k0 in range(0, keys.shape[0], rows):
+        block = keys[k0:k0 + rows].reshape(-1)
+        idx = torch.nonzero(block != invalid).squeeze(1)
+        kept.append(block[idx])
+        cols.append(idx % n_pad)
+    return torch.cat(kept), torch.cat(cols)
+
+
+def bin_gaussians(
+    proj: ProjectedGaussians,
+    width: int,
+    height: int,
+    k_small: int = K1_DEFAULT,
+    m_big: int = M_BIG_DEFAULT,
+    k_big: int = K2_DEFAULT,
+    m_mid: int = 0,
+    k_mid: int = 0,
+) -> TileBins:
+    """Build per-tile depth-ordered Gaussian lists.
+
+    Emission tiers: every Gaussian gets ``k_small`` slots; the top ``m_big``
+    spanners (by AABB tile count) get ``k_big``. When ``m_mid``/``k_mid`` are
+    set, a third tier slots the mid-size spanners (k_small < count <= k_mid)
+    at ``k_mid`` each, and the big tier only takes count > k_mid. Tiles are
+    TILE_W x TILE_H; the JAX signature's unused ``pair_capacity``,
+    ``max_tiles_per_gaussian`` and tile-size arguments are not carried over.
+    """
+    plan = emission_plan(proj, width, height, k_small=k_small, m_big=m_big,
+                         k_big=k_big, m_mid=m_mid, k_mid=k_mid)
+    n_tiles = plan.tiles_x * plan.tiles_y
+    mult = plan.mult
+    kept = [(t, *_kept_slots(emit_tile_keys(t.attrs, t.rank, t.k_budget,
+                                            plan.tiles_x, n_tiles, mult),
+                             INVALID_KEY if mult else n_tiles))
+            for t in plan.tiers]
+    keys = torch.cat([k for _, k, _ in kept])
+    gauss = torch.cat([t.gauss[col] for t, _, col in kept])
+
+    # 3. One sort orders the kept pairs per tile front to back. Valid keys are
+    # unique, so an unstable sort gives the same pairs as a stable one.
+    tile_ids = torch.arange(n_tiles + 1, dtype=torch.int64,
+                            device=keys.device)
+    if mult:
+        keys_sorted, perm = torch.sort(keys)
+        queries = (tile_ids * mult).to(torch.int32)
+    else:
+        # Two-key path: a lexicographic sort on (tile, rank) as one int64 key.
+        ranks = torch.cat([t.rank[col] for t, _, col in kept])
+        keys_sorted, perm = torch.sort((keys.to(torch.int64) << 31)
+                                       | ranks.to(torch.int64))
+        queries = tile_ids << 31
+    bounds = torch.searchsorted(keys_sorted, queries).to(torch.int32)
+    return TileBins(
+        pair_gauss=gauss[perm],
+        tile_start=bounds[:-1],
+        tile_count=bounds[1:] - bounds[:-1],
+        n_pairs=bounds[-1],
+        overflow=plan.overflow.to(torch.int32),
+        tiles_x=plan.tiles_x,
+        tiles_y=plan.tiles_y,
+    )
+
+
+def pair_count_stats(proj: ProjectedGaussians, width: int,
+                     height: int) -> dict:
+    """Cheap elementwise probe of the binning workload (no sort): per-Gaussian
+    AABB tile counts reduced to the scalars ``suggest_budgets`` needs."""
+    tiles_x, tiles_y = num_tiles(width, height)
+    vis, _, _, _, count, _, _ = _tile_rect(proj, tiles_x, tiles_y)
+    exceed = torch.stack([torch.sum(count > k) for k in SUGGEST_THRESHOLDS])
+    return {
+        "n_visible": torch.sum(vis),
+        "sum_count_parts": torch.sum(count.to(torch.int64)).reshape(1),
+        "max_count": torch.max(count),
+        "exceed": exceed,   # aligned with SUGGEST_THRESHOLDS
+    }
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def suggest_budgets(proj: ProjectedGaussians, width: int, height: int) -> dict:
+    """Overflow-free static budgets for ``bin_gaussians`` + the pair capacity
+    from one probe. Returns {"k_small", "m_big", "k_big", "m_mid", "k_mid",
+    "pair_capacity", "n_pairs_upper"}."""
+    stats = pair_count_stats(proj, width, height)
+    return _pick_budgets({k: v.cpu().numpy() for k, v in stats.items()},
+                         proj.depths.shape[0])
+
+
+def _pick_budgets(stats: dict, n: int) -> dict:
+    """Host-side budget choice from fetched ``pair_count_stats`` scalars.
+
+    Considers both the 2-tier (small/big) and the 3-tier (small/mid/big)
+    emission layouts and picks the smaller total emission array; the 3-tier
+    form costs one extra argsort + emit call, so it must win by >=20%."""
+    max_count = int(stats["max_count"])
+    sum_count = sum(int(p) for p in stats["sum_count_parts"])
+    exceed = [int(e) for e in stats["exceed"]]
+    k_big = max(_pow2_at_least(max_count), 8)
+
+    def msize(n_exceed):
+        return max(_pow2_at_least(n_exceed + max(n_exceed // 8, 16)), 32)
+
+    best = None
+    for k1, e1 in zip(SUGGEST_THRESHOLDS, exceed):
+        emission = n * k1 + msize(e1) * k_big
+        if best is None or emission < best[0]:
+            best = (emission, k1, msize(e1), 0, 0)
+    for i, (k1, e1) in enumerate(zip(SUGGEST_THRESHOLDS, exceed)):
+        for k2, e2 in zip(SUGGEST_THRESHOLDS[i + 1:], exceed[i + 1:]):
+            m_mid = msize(e1 - e2)
+            m_big3 = msize(e2)
+            emission = n * k1 + m_mid * k2 + m_big3 * k_big
+            if emission < best[0] * 0.8:
+                best = (emission, k1, m_big3, m_mid, k2)
+    _, k_small, m_big, m_mid, k_mid = best
+    # 128-multiple (the compositor's chunk size), not pow2: every downstream
+    # stage is proportional to the static capacity.
+    pair_capacity = -(-(sum_count + 1024) // 128) * 128
+    return {
+        "k_small": int(k_small),
+        "m_big": int(m_big),
+        "k_big": int(k_big),
+        "m_mid": int(m_mid),
+        "k_mid": int(k_mid),
+        "pair_capacity": int(pair_capacity),
+        "n_pairs_upper": sum_count,
+    }
