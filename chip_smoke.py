@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's forward render path on one CUDA card, at full size.
+"""Drive the PyTorch port's render and training paths on one CUDA card, at
+full size.
 
     python3 chip_smoke.py
 
@@ -13,14 +14,35 @@ no result line):
      tables of the 1080p frame of a 1M-Gaussian scene, fused key (mult > 0)
      and two-key (mult == 0) modes: the keys must be equal;
   4. K2 (``csrc/composite_fwd.cu``) against its plain version on the same
-     binned frame, with the tolerances stated below;
-  5. the main path: ``render(backend="cuda")`` on three frames (1920x1080
+     binned frame, with the tolerances stated below; then, on the same frame
+     and K2's k_end with a seeded cotangent, K3 (``csrc/composite_bwd.cu``)
+     against its plain version, and K4 (``csrc/segreduce.cu``) against its
+     plain version on K3's id-sorted gradient rows, launched twice (the two
+     results must be bitwise equal);
+  5. the render path: ``render(backend="cuda")`` on three frames (1920x1080
      and 3840x2160 of the 1M-Gaussian room, and the 640x480 agent view of a
      200k room; ``smoke_frames``) with
      ``autotune_all(pair_margin=1.05)`` budgets, each with its launch
      counters set to 0 just before and read just after; overflow must be 0.
      The 1080p frame is also rendered by the ``torch`` backend, and a small
-     frame is held against the exact per-pixel oracle;
+     frame is held against the exact per-pixel oracle. Gradients of all five
+     trainable groups through ``render(backend="cuda")`` are held against the
+     ``torch`` backend's at 320x256 and against the oracle's at 64x48;
+  5b. the training path: ``make_train_step(backend="cuda")`` with the
+     per-group Adam takes ``TRAIN_STEPS`` steps on the 1080p frame of the 1M
+     room towards the room's own render, from the room with seeded noise on
+     its colours and opacities (geometry as is), with
+     ``autotune_all(pair_margin=1.5, grad_margin=1.5)`` budgets;
+     every step must launch K1-K4 (counters set to 0 before each step), the
+     loss must stay finite and fall, and renders of the first and last
+     parameters must not overflow. Step time (CUDA events), Mpix/s, and the
+     device's busy time, idle share and top kernels per step (torch.profiler);
+  5c. the start with SH noise 0.1 alone, whose loss the group Adam raises:
+     at 1080p/1M, 10 steps at the group rates and at a tenth of them, and
+     each group's first-order loss change along its ``cuda`` gradient held
+     against the change measured by rendering, at the step lengths of
+     ``SLOPE_STEPS`` (one of them must agree within ``SLOPE_TOL``); at
+     320x256, 10 steps each with the ``cuda`` and the ``torch`` backend;
   6. times: per-stage medians over 20 runs after 3 warm-ups (CUDA events);
      the device's busy time per frame and per stage, from torch.profiler
      traces (CUDA activity only) of unsynchronized loops, and the idle share
@@ -45,6 +67,21 @@ K2_DEPTH_TOL = 1e-3     # depth_acc (rtol and atol): depths reach ~50
 SEM_MIN = 0.995         # semantic agreement: near-equal weights may swap
 KEND_MAX_DIFF = 0.001   # share of tiles whose k_end may differ
 BACKEND_ATOL = 5e-4     # cuda vs torch backend: log-space vs product blend
+K3_REL = 2e-4           # K3 channels, over the channel's max |plain|: sums of
+                        # 1024 pixels in another order
+K4_TOL = 1e-6           # K4 (rtol and atol): the plain version adds in the
+                        # kernel's order; only a -0/+0 may differ
+GRAD_REL = 5e-4         # cuda vs torch backend gradients over max |torch|
+                        # (bench.py's gate)
+ORACLE_GRAD = 3e-4      # cuda backend vs oracle gradients over max |oracle|
+SLOPE_STEPS = (1e-2, 1e-3, 1e-4)  # 5c: each group's steps lower the loss by
+                        # these shares of it to first order. Too long a step
+                        # leaves the linear regime (curvature), too short a
+                        # one meets the render's jumps (a Gaussian crossing a
+                        # cull or cutoff changes a pixel by a fixed amount).
+SLOPE_TOL = 0.5         # 5c: |measured / first-order change - 1| at most this
+TRAIN_STEPS = 10        # full-width training steps; 3 are warm-ups
+TRAINABLE = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
 # H100 SXM peaks (NVIDIA data sheet; dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -52,11 +89,18 @@ FP32_OPS_PER_S = 67e12
 # FP32 operations per unit of work, counted from the kernels' source:
 # K1, one live slot: the reciprocal walk with its fixup, the tile rect, four
 # edge minima of the conic quadratic, the cull test and the key (~90).
-# K2, one pair-pixel evaluation: the quadratic (10), the exp (counted as 4),
-# the clamps and cutoff (4), w and the five accumulations (11), the best
-# test (1) and the transmittance update (2).
+# K2 and K3 need the rest of their work only where alpha > 0 (a hit): where
+# alpha is 0, w and every gradient term are exact zeros and T stays.
+# K2, every pair-pixel evaluation: the quadratic (10), the exp (counted as
+# 4), the clamps and cutoff (4); every hit: w and the five accumulations
+# (11), the best test (1) and the transmittance update (2).
+# K3, every evaluation: K2's alpha (18) and 1 - alpha (1); every hit: w and
+# T (2), c (9), the running sum of c*w (2), dalpha with its two divisions and
+# mask (8), dpower (1), dx and dy (2), the five geometry channels (22) and
+# the opacity and four colour channels (9), each added into its sum.
 K1_OPS_PER_SLOT = 90
-K2_OPS_PER_EVAL = 32
+K2_OPS_PER_EVAL, K2_OPS_PER_HIT = 18, 14
+K3_OPS_PER_EVAL, K3_OPS_PER_HIT = 19, 55
 
 FAILURES: list = []
 PROFILE_REPS = 10       # frames per torch.profiler trace
@@ -150,12 +194,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from sage3d_tpu_torch.ops import _build, binning, composite_cuda
+    import numpy as np
+    from sage3d_tpu_torch.ops import _build, binning, composite_cuda, segreduce
     from sage3d_tpu_torch.ops.projection import project_gaussians
-    from sage3d_tpu_torch.renderer.camera import make_camera
+    from sage3d_tpu_torch.parallel import train
+    from sage3d_tpu_torch.renderer.camera import make_camera, stack_cameras
     from sage3d_tpu_torch.renderer.render import (autotune_all, budget_kwargs,
                                                   render)
     from sage3d_tpu_torch.renderer.scene import synthetic_room
+    cc = composite_cuda
 
     # 1. device ---------------------------------------------------------------
     smi = nvidia_smi_line()
@@ -177,6 +224,10 @@ def main() -> int:
     for key, (scene, cam) in frames.items():
         budgets[key] = autotune_all(scene, cam, pair_margin=1.05)
         print(f"budgets {key}: {json.dumps(budgets[key])}", flush=True)
+    # the training budgets: margins for parameters that move
+    budgets_train = autotune_all(*frames["a_1080p_1M"], pair_margin=1.5,
+                                 grad_margin=1.5)
+    print(f"budgets train a: {json.dumps(budgets_train)}", flush=True)
 
     scene_a, cam_a = frames["a_1080p_1M"]
     bk_a = budget_kwargs(budgets["a_1080p_1M"])
@@ -222,12 +273,62 @@ def main() -> int:
     kend_diff = int((kend_k != kend_p).sum())
     print(f"K2 vs plain: max_abs rgb/alpha/trans {k2_err:.3e}, semantic "
           f"agreement {sem_agree:.6f}, k_end differs on {kend_diff} of "
-          f"{n_tiles_a} tiles, sum k_end {int(kend_k.sum())}", flush=True)
+          f"{n_tiles_a} tiles, sum k_end {int(kend_k.sum())}, max k_end "
+          f"{int(kend_k.max())} (one block walks a tile's chunks in order)",
+          flush=True)
     check(k2_err <= K2_ATOL, f"K2 rgb/alpha/trans within {K2_ATOL}")
     check(depth_ok, f"K2 depth_acc within rtol=atol={K2_DEPTH_TOL}")
     check(sem_agree >= SEM_MIN, f"K2 semantic agreement >= {SEM_MIN}")
     check(kend_diff <= KEND_MAX_DIFF * n_tiles_a,
           f"K2 k_end differs on <= {KEND_MAX_DIFF:.1%} of tiles")
+
+    # 4b. K3 against its plain version ----------------------------------------
+    c_cap_a = int(budgets_train["grad_capacity"])
+    chunk0_a, allowed_a = cc.slot_ranges(kend_k, c_cap_a)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gout_a = torch.randn(out_k.shape, generator=gen, device=dev)
+    k3_args = (attrs_a, pg, start, count, chunk0_a, allowed_a, out_k, gout_a,
+               c_cap_a, plan.tiles_x)
+    slots_k = cc.composite_bwd(*k3_args)
+    slots_p = cc.composite_bwd_plain(*k3_args)
+    torch.cuda.synchronize()
+    used = int(allowed_a.sum()) * cc.CHUNK
+    n_a = attrs_a.shape[0]
+    k3_err = max(float((slots_k[:, ch] - slots_p[:, ch]).abs().max())
+                 for ch in range(cc.NGRAD))
+    k3_rel = max(float((slots_k[:, ch] - slots_p[:, ch]).abs().max())
+                 / max(float(slots_p[:, ch].abs().max()), 1e-30)
+                 for ch in range(cc.NGRAD))
+    ids_equal = torch.equal(slots_k[:, cc.GID_COL], slots_p[:, cc.GID_COL])
+    tail_unfilled = used == len(slots_k) or (
+        float(slots_k[used:, :cc.NGRAD].abs().max()) == 0.0
+        and bool((slots_k[used:, cc.GID_COL] == n_a).all()))
+    print(f"K3 vs plain: max_abs {k3_err:.3e}, max over channels of "
+          f"max_abs / max|plain| {k3_rel:.3e}, {used} slot rows of "
+          f"{len(slots_k)} (c_cap {c_cap_a})", flush=True)
+    check(c_cap_a >= int(kend_k.sum()), "training grad_capacity >= sum k_end")
+    check(k3_rel <= K3_REL, f"K3 channels within {K3_REL} x channel max")
+    check(ids_equal, "K3 id column equal to the plain version's")
+    check(tail_unfilled, "K3 slots past sum(allowed): zero payload, id N")
+
+    # 4c. K4 against its plain version, and determinism, on the rows the
+    # backward gives it: every slot row, sorted by id (the unfilled rows,
+    # id N, sort last and add nothing) ---------------------------------------
+    ids_a, perm_a = torch.sort(slots_k[:, cc.GID_COL].to(torch.int32),
+                               stable=True)
+    rows_a = slots_k[:, :cc.NGRAD]
+    n_in = int((ids_a < n_a).sum())
+    k4_args = (ids_a, rows_a, n_a)
+    seg_k = segreduce.segment_reduce_sorted(*k4_args, perm=perm_a)
+    seg_k2 = segreduce.segment_reduce_sorted(*k4_args, perm=perm_a)
+    seg_p = segreduce.segment_reduce_plain(*k4_args, perm=perm_a)
+    torch.cuda.synchronize()
+    k4_err = float((seg_k - seg_p).abs().max())
+    print(f"K4 vs plain: max_abs {k4_err:.3e} over {n_a} Gaussians, "
+          f"{len(ids_a)} rows ({n_in} with an id below N)", flush=True)
+    check(bool(torch.allclose(seg_k, seg_p, rtol=K4_TOL, atol=K4_TOL)),
+          f"K4 within rtol=atol={K4_TOL} of its plain version")
+    check(torch.equal(seg_k, seg_k2), "K4 twice on one input: bitwise equal")
 
     # 5. the main path ----------------------------------------------------------
     launches = {"emit": 0, "composite_fwd": 0}
@@ -282,6 +383,209 @@ def main() -> int:
     check(oracle_ok and int(s_cu["overflow"]) == 0,
           "64x48 frame: cuda backend within rtol=atol=1e-4 of the oracle "
           f"(max_abs {oracle_err:.2e})")
+
+    # Gradients of the render path, all five trainable groups.
+    def grads_of(scene, cam, backend, **kw):
+        params = {k: getattr(scene, k).clone().requires_grad_()
+                  for k in TRAINABLE}
+        out = render(scene._replace(**params), cam, backend=backend, **kw)
+        (torch.mean((out["rgb"] - 0.5) ** 2) + 0.05 * torch.mean(
+            out["depth_acc"]) + 0.02 * torch.mean(out["alpha"])
+         + 0.01 * torch.mean(out["trans"])).backward()
+        return {k: params[k].grad for k in TRAINABLE}, int(out["overflow"])
+
+    def grad_rel(got, ref):
+        return max(float((got[k] - ref[k]).abs().max())
+                   / max(float(ref[k].abs().max()), 1e-30) for k in TRAINABLE)
+
+    g_scene = synthetic_room(20_000, seed=5, device=dev)
+    g_cam = make_camera([0.0, -4.0, 1.2], [0.0, 1.0, -0.1], 320, 256,
+                        device=dev)
+    g_bk = budget_kwargs(autotune_all(g_scene, g_cam))
+    g_cu, ovf_cu = grads_of(g_scene, g_cam, "cuda", **g_bk)
+    g_to, ovf_to = grads_of(g_scene, g_cam, "torch", **g_bk)
+    rel_torch = grad_rel(g_cu, g_to)
+    g_cu_s, _ = grads_of(small, small_cam, "cuda", pair_capacity=1 << 14)
+    g_or_s, _ = grads_of(small, small_cam, "oracle")
+    rel_oracle = grad_rel(g_cu_s, g_or_s)
+    print(f"gradients, cuda vs torch backend at 320x256: max over groups of "
+          f"max_abs / max|torch| {rel_torch:.3e}; cuda vs oracle at 64x48: "
+          f"{rel_oracle:.3e}", flush=True)
+    check(ovf_cu == 0 and ovf_to == 0, "320x256 gradient frame: overflow 0")
+    check(rel_torch <= GRAD_REL, f"cuda vs torch gradients within {GRAD_REL}")
+    check(rel_oracle <= ORACLE_GRAD,
+          f"cuda vs oracle gradients within {ORACLE_GRAD}")
+
+    # 5b. the training path ------------------------------------------------------
+    bk_t = budget_kwargs(budgets_train)
+    with torch.no_grad():
+        target = render(scene_a, cam_a, backend="cuda", **bk_t)["rgb"][None]
+    # The start: the room with noise on its SH (sigma 1) and opacity logits
+    # (sigma 0.5). Adam's first steps move every parameter by about its rate;
+    # from a start this far off they lower the loss, where from a start whose
+    # error is much smaller than such a step (SH noise 0.1 alone) they raise
+    # it (phase 5c).
+    rng = np.random.default_rng(1)
+    sh_noise = rng.normal(0.0, 1.0, tuple(scene_a.sh.shape)).astype(np.float32)
+    op_noise = rng.normal(0.0, 0.5, tuple(scene_a.opacity_logits.shape))
+    start_scene = scene_a._replace(
+        sh=scene_a.sh + torch.from_numpy(sh_noise).to(dev),
+        opacity_logits=scene_a.opacity_logits
+        + torch.from_numpy(op_noise.astype(np.float32)).to(dev))
+    cams_t = stack_cameras([cam_a])
+    opt = train.make_group_optimizer(extent=1.0)
+    step_fn, _ = train.make_train_step(start_scene, cam_a, optimizer=opt,
+                                       backend="cuda", **bk_t)
+    state = train.init_train_state(start_scene, opt)
+    counters = {"emit": binning.emit_tile_keys,
+                "composite_fwd": cc.composite_fwd,
+                "composite_bwd": cc.composite_bwd,
+                "segreduce": segreduce.segment_reduce_sorted}
+    with torch.no_grad():
+        ovf_first = int(render(start_scene, cam_a, backend="cuda",
+                               **bk_t)["overflow"])
+    losses, step_ms = [], []
+    launches_train = {k: 0 for k in counters}
+    every_step = True
+    for i in range(TRAIN_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, loss = step_fn(state, cams_t, target)
+        ev[1].record()
+        ev[1].synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(loss))
+        n = {k: fn.launches for k, fn in counters.items()}
+        every_step &= all(v > 0 for v in n.values())
+        for k in counters:
+            launches_train[k] += n[k]
+        print(f"train step {i + 1}: loss {losses[-1]:.6e}, {step_ms[-1]:.3f} ms,"
+              f" launches {json.dumps(n)}", flush=True)
+    with torch.no_grad():
+        last = train.with_params(start_scene, {k: v.detach() for k, v in
+                                               state.params.items()})
+        ovf_last = int(render(last, cam_a, backend="cuda", **bk_t)["overflow"])
+    step_med = statistics.median(step_ms[3:])
+    mpix = cam_a.width * cam_a.height / (step_med * 1e3)
+    print(f"train {card}: step {step_med:.3f} ms median of "
+          f"{TRAIN_STEPS - 3} after 3 warm-ups = {mpix:.2f} Mpix/s; loss "
+          f"{losses[0]:.6e} -> {losses[-1]:.6e}; overflow first/last "
+          f"{ovf_first}/{ovf_last}", flush=True)
+    check(every_step, "every training step launched K1, K2, K3 and K4")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "training loss finite and falling")
+    check(ovf_first == 0 and ovf_last == 0,
+          "training frame: overflow 0 with the first and last parameters")
+
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], cams_t, target)
+
+    busy_t, n_ops_t, top_t = device_busy(one_step, reps=5)
+    check(busy_t > 0, "training: the profiler saw device time")
+    print(f"device train {card}: busy {busy_t:.3f} ms per step of "
+          f"{step_med:.3f} ms, idle share {1.0 - busy_t / step_med:.3f}; "
+          f"{n_ops_t:.0f} kernels and copies per step (torch.profiler, CUDA "
+          f"activity only, 5 unsynchronized steps)", flush=True)
+    for kname, kms, kn in top_t:
+        print(f"  top kernel train: {kms:.3f} ms, {kn:g} launches: {kname}",
+              flush=True)
+
+    # 5c. the start with SH noise 0.1 alone --------------------------------------
+    # Adam moves every parameter by about its rate on its first steps. From a
+    # start whose error is far below what such steps add, the group rates
+    # raise the loss, where a tenth of them need not. Whether the gradient is
+    # at fault is read from the loss itself: each group steps along its
+    # negative gradient by the lengths that lower the loss by SLOPE_STEPS of
+    # it to first order, and at one of them the change measured by rendering
+    # must agree. A gradient of the wrong sign or size fails at every length.
+    def sh_noisy(scene, seed):
+        noise = np.random.default_rng(seed).normal(
+            0.0, 0.1, tuple(scene.sh.shape)).astype(np.float32)
+        return scene._replace(sh=scene.sh + torch.from_numpy(noise).to(dev))
+
+    def run_steps(start, cam, tgt, optimizer, backend, bk):
+        fn, _ = train.make_train_step(start, cam, optimizer=optimizer,
+                                      backend=backend, **bk)
+        st = train.init_train_state(start, optimizer)
+        losses_run = []
+        for _ in range(TRAIN_STEPS):
+            st, l_run = fn(st, stack_cameras([cam]), tgt)
+            losses_run.append(float(l_run))
+        return losses_run
+
+    def fmt(ls):
+        return " ".join(f"{x:.4e}" for x in ls)
+
+    sh_start = sh_noisy(scene_a, 2)
+    group = train.make_group_optimizer(extent=1.0)
+    tenth = train.make_group_optimizer(
+        extent=1.0, lrs={k: 0.1 * v for k, v in train.GROUP_LRS.items()})
+    l_rates = run_steps(sh_start, cam_a, target, group, "cuda", bk_t)
+    l_tenth = run_steps(sh_start, cam_a, target, tenth, "cuda", bk_t)
+    print(f"start SH noise 0.1, 1080p/1M, cuda, loss per step: group rates "
+          f"{fmt(l_rates)}; a tenth of the rates {fmt(l_tenth)}", flush=True)
+
+    def slope_ratios(start, cam, tgt, backend, bk):
+        """Per group, the loss change measured by rendering over its
+        first-order prediction, at each step length of SLOPE_STEPS."""
+        def loss_of(params):
+            out = render(start._replace(**params), cam, backend=backend, **bk)
+            return torch.sum((out["rgb"] - tgt[0]) ** 2) / tgt[0].numel()
+
+        leaves = {k: getattr(start, k).clone().requires_grad_()
+                  for k in TRAINABLE}
+        loss0 = loss_of(leaves)
+        loss0.backward()
+        base = float(loss0.detach())
+        ratios = {}
+        with torch.no_grad():
+            for k in TRAINABLE:
+                g = leaves[k].grad
+                ratios[k] = []
+                for share in SLOPE_STEPS:
+                    eta = share * base / float((g.double() ** 2).sum())
+                    moved = {q: v.detach() for q, v in leaves.items()}
+                    moved[k] = moved[k] - eta * g
+                    ratios[k].append((float(loss_of(moved)) - base)
+                                     / (-share * base))
+        return ratios
+
+    def fmt_ratios(ratios):
+        return "; ".join(f"{k} " + ", ".join(f"{r:.4f}" for r in rs)
+                         for k, rs in ratios.items())
+
+    slopes = slope_ratios(sh_start, cam_a, target, "cuda", bk_t)
+    print(f"start SH noise 0.1, 1080p/1M, cuda: measured / first-order loss "
+          f"change along -grad at step lengths {SLOPE_STEPS}: "
+          f"{fmt_ratios(slopes)}", flush=True)
+    check(all(min(abs(r - 1.0) for r in rs) <= SLOPE_TOL
+              for rs in slopes.values()),
+          f"1080p/1M: every group's loss change within {SLOPE_TOL} of its "
+          "gradient's first-order prediction at one step length")
+
+    bk_g = budget_kwargs(autotune_all(g_scene, g_cam, pair_margin=1.5,
+                                      grad_margin=1.5))
+    with torch.no_grad():
+        g_target = render(g_scene, g_cam, backend="cuda", **bk_g)["rgb"][None]
+    g_start = sh_noisy(g_scene, 3)
+    l_cu = run_steps(g_start, g_cam, g_target, group, "cuda", bk_g)
+    l_to = run_steps(g_start, g_cam, g_target, group, "torch", bk_g)
+    rel_traj = max(abs(a - b) / abs(b) for a, b in zip(l_cu, l_to))
+    print(f"start SH noise 0.1, 320x256/20k, group rates, loss per step: "
+          f"cuda {fmt(l_cu)}; torch {fmt(l_to)}; max |cuda - torch| / torch "
+          f"{rel_traj:.3e}", flush=True)
+    # The same slopes where the torch backend's autograd gradient can be
+    # taken: a departure from 1 that both backends show belongs to the render
+    # (its cutoffs), not to the cuda backward.
+    for backend in ("cuda", "torch"):
+        ratios = slope_ratios(g_start, g_cam, g_target, backend, bk_g)
+        print(f"start SH noise 0.1, 320x256/20k, {backend}: measured / "
+              f"first-order loss change along -grad: {fmt_ratios(ratios)}",
+              flush=True)
 
     # 6. times -------------------------------------------------------------------
     from sage3d_tpu_torch.ops.composite_cuda import composite_tiles_cuda
@@ -381,27 +685,104 @@ def main() -> int:
     # Bytes K2 must move: the pair ids of the chunks it walked, columns 0-10
     # of each Gaussian they name, the tile ranges, the images and k_end.
     n_t = start.shape[0]
-    walked = torch.minimum(count, kend_k * composite_cuda.CHUNK)
-    edges = torch.zeros(pg.shape[0] + 1, dtype=torch.int32, device=dev)
-    edges.index_add_(0, start.long(), torch.ones_like(walked))
-    edges.index_add_(0, (start + walked).long(), -torch.ones_like(walked))
-    seen = torch.cumsum(edges, 0, dtype=torch.int32)[:-1] > 0
-    n_read = int(torch.unique(pg[seen]).numel())
+
+    def walked_pairs(chunks):
+        """Pairs walked per tile in ``chunks`` chunks, and the number of
+        distinct Gaussians they name."""
+        walked = torch.minimum(count, chunks * cc.CHUNK)
+        edges = torch.zeros(pg.shape[0] + 1, dtype=torch.int32, device=dev)
+        edges.index_add_(0, start.long(), torch.ones_like(walked))
+        edges.index_add_(0, (start + walked).long(), -torch.ones_like(walked))
+        seen = torch.cumsum(edges, 0, dtype=torch.int32)[:-1] > 0
+        return walked, int(torch.unique(pg[seen]).numel())
+
+    def alpha_hits(chunks):
+        """Pair-pixel evaluations with alpha > 0 in the first ``chunks[t]``
+        chunks of every tile, by the plain versions' alpha."""
+        px, py = cc._pixel_centers(dev)
+        hits = torch.zeros((), dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            for t0 in range(0, n_t, 64):
+                tid = torch.arange(t0, min(t0 + 64, n_t), device=dev)
+                ox = ((tid % plan.tiles_x) * cc.TILE_W).float()[:, None, None]
+                oy = ((tid // plan.tiles_x) * cc.TILE_H).float()[:, None, None]
+                walk = chunks[tid].long()
+                for k in range(int(walk.max())):
+                    alpha = cc._plain_chunk(attrs_a, pg, start[tid].long(),
+                                            count[tid].long(), k, ox, oy, px,
+                                            py)[2]
+                    hits += ((alpha > 0) & (k < walk)[:, None, None]).sum()
+        return int(hits)
+
+    def ops_bound(n_bytes, evals, per_eval, hits, per_hit):
+        """The bound in ms and what sets it."""
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        t_ops = (evals * per_eval + hits * per_hit) / FP32_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, (
+            "bytes" if t_bytes >= t_ops else "operations")
+
+    walked, n_read = walked_pairs(kend_k)
     k2_bytes = (n_read * 11 * 4 + int(walked.sum()) * 4 + n_t * 8
                 + n_t * composite_cuda.NCH * composite_cuda.NPIX * 4 + n_t * 4)
     k2_evals = float(walked.double().sum()) * composite_cuda.NPIX
-    k2_bound = max(k2_bytes / HBM_BYTES_PER_S,
-                   k2_evals * K2_OPS_PER_EVAL / FP32_OPS_PER_S) * 1e3
-    k2_by = ("bytes" if k2_bytes / HBM_BYTES_PER_S
-             >= k2_evals * K2_OPS_PER_EVAL / FP32_OPS_PER_S else "operations")
+    k2_hits = alpha_hits(kend_k)
+    k2_bound, k2_by = ops_bound(k2_bytes, k2_evals, K2_OPS_PER_EVAL, k2_hits,
+                                K2_OPS_PER_HIT)
     print(f"K1 at frame a {card}: kernel {k1_ms:.3f} ms for {len(plan.tiers)} "
           f"launches, plain {k1_plain_ms:.3f} ms, bound {k1_bound:.3f} ms "
           f"({k1_by}: {k1_bytes / 1e6:.1f} MB, {k1_live:.3e} live slots)",
           flush=True)
     print(f"K2 at frame a {card}: kernel {k2_ms:.3f} ms, plain "
           f"{k2_plain_ms:.3f} ms, bound {k2_bound:.3f} ms ({k2_by}: "
-          f"{k2_bytes / 1e6:.1f} MB, {k2_evals:.4e} pair-pixel evaluations)",
-          flush=True)
+          f"{k2_bytes / 1e6:.1f} MB, {k2_evals:.4e} pair-pixel evaluations, "
+          f"{k2_hits:.4e} with alpha > 0)", flush=True)
+
+    k3_ms = cuda_ms(lambda: cc.composite_bwd(*k3_args), reps=20, warmup=3)
+    k3_plain_ms = cuda_ms(lambda: cc.composite_bwd_plain(*k3_args), reps=2,
+                          warmup=1)
+    # Bytes K3 must move: the pair ids of the chunks it walks, columns 0-11
+    # of each Gaussian they name, channels 0-5 of the forward's images and of
+    # their cotangent, and one 16-float slot row written per walked pair;
+    # operations: K3_OPS_PER_EVAL per pair-pixel evaluation of its walk and
+    # K3_OPS_PER_HIT more per evaluation with alpha > 0.
+    walked3, n_read3 = walked_pairs(allowed_a)
+    n_walked3 = int(walked3.sum())
+    k3_bytes = (n_read3 * 12 * 4 + n_walked3 * 4
+                + 2 * n_t * 6 * cc.NPIX * 4 + n_walked3 * cc.NFEAT * 4)
+    k3_evals = float(walked3.double().sum()) * cc.NPIX
+    k3_hits = alpha_hits(allowed_a)
+    k3_bound, k3_by = ops_bound(k3_bytes, k3_evals, K3_OPS_PER_EVAL, k3_hits,
+                                K3_OPS_PER_HIT)
+
+    k4_ms = cuda_ms(lambda: segreduce.segment_reduce_sorted(*k4_args,
+                                                            perm=perm_a),
+                    reps=20, warmup=3)
+    k4_plain_ms = cuda_ms(lambda: segreduce.segment_reduce_plain(
+        *k4_args, perm=perm_a), reps=2, warmup=1)
+    # index_add_ takes only ids below N: the sorted rows' prefix
+    ids_in, rows_in = ids_a[:n_in], rows_a[perm_a[:n_in]]
+    k4_lib_ms = cuda_ms(lambda: torch.zeros((n_a, cc.NGRAD), device=dev)
+                        .index_add_(0, ids_in, rows_in), reps=20, warmup=3)
+    # Bytes K4 must move: every row's id read once, the payload of the rows
+    # with an id below N read once, the output written once; one add per
+    # such payload value.
+    k4_bytes = len(ids_a) * 4 + n_in * cc.NGRAD * 4 + n_a * cc.NGRAD * 4
+    k4_ops = n_in * cc.NGRAD
+    k4_bound = max(k4_bytes / HBM_BYTES_PER_S, k4_ops / FP32_OPS_PER_S) * 1e3
+    k4_by = ("bytes" if k4_bytes / HBM_BYTES_PER_S >= k4_ops / FP32_OPS_PER_S
+             else "operations")
+    sort_ms = cuda_ms(lambda: torch.sort(slots_k[:, cc.GID_COL].to(
+        torch.int32), stable=True), reps=20, warmup=3)
+    print(f"K3 at frame a {card}: kernel {k3_ms:.3f} ms, plain "
+          f"{k3_plain_ms:.3f} ms, bound {k3_bound:.3f} ms ({k3_by}: "
+          f"{k3_bytes / 1e6:.1f} MB, {k3_evals:.4e} pair-pixel evaluations, "
+          f"{k3_hits:.4e} with alpha > 0)", flush=True)
+    print(f"id sort at frame a {card}: {sort_ms:.3f} ms for {len(slots_k)} "
+          f"slot rows (stable torch.sort of the id column, as the backward "
+          f"does)", flush=True)
+    print(f"K4 at frame a {card}: kernel {k4_ms:.3f} ms, plain "
+          f"{k4_plain_ms:.3f} ms, index_add_ {k4_lib_ms:.3f} ms, bound "
+          f"{k4_bound:.4f} ms ({k4_by}: {k4_bytes / 1e6:.1f} MB)", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB", flush=True)
 
@@ -409,15 +790,29 @@ def main() -> int:
         {"name": "K1 emit_tile_keys", "route": "cuda",
          "source": "sage3d_tpu_torch/csrc/emit.cu",
          "replaces": "sage3d_tpu/ops/binning.py:153",
-         "launches": launches["emit"], "max_abs_err": 0.0 if k1_equal else None,
+         "launches": launches["emit"] + launches_train["emit"],
+         "max_abs_err": 0.0 if k1_equal else None,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "K2 composite_fwd", "route": "cuda",
          "source": "sage3d_tpu_torch/csrc/composite_fwd.cu",
          "replaces": "sage3d_tpu/ops/composite_pallas.py:156",
-         "launches": launches["composite_fwd"], "max_abs_err": k2_err,
+         "launches": launches["composite_fwd"]
+         + launches_train["composite_fwd"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "K3 composite_bwd", "route": "cuda",
+         "source": "sage3d_tpu_torch/csrc/composite_bwd.cu",
+         "replaces": "sage3d_tpu/ops/composite_pallas.py:249",
+         "launches": launches_train["composite_bwd"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None},
+        {"name": "K4 segment_reduce_sorted", "route": "cuda",
+         "source": "sage3d_tpu_torch/csrc/segreduce.cu",
+         "replaces": "sage3d_tpu/ops/segreduce.py:55",
+         "launches": launches_train["segreduce"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+         "bound_by": k4_by, "library_ms": k4_lib_ms},
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel of the path launched on the main path")

@@ -3,10 +3,12 @@ CUDA kernels for an NVIDIA H100 (sm_90a).
 
 A second package beside the JAX package ``sage3d_tpu``, which stays the
 reference it is tested against. It imports neither JAX nor ``sage3d_tpu``.
-This slice holds the forward render path: scene and camera, projection,
-binning (kernel K1, ``csrc/emit.cu``) and the tile compositor (kernel K2,
-``csrc/composite_fwd.cu``). Entry points run on the card unless the caller
-passes ``device="cpu"``.
+It holds the differentiable render path: scene and camera, projection,
+binning (kernel K1, ``csrc/emit.cu``), the tile compositor (kernel K2,
+``csrc/composite_fwd.cu``) and its analytic backward (kernels K3,
+``csrc/composite_bwd.cu``, and K4, ``csrc/segreduce.cu``); and single-device
+scene training (``parallel/``: train step, checkpoints, ``fit_scene``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

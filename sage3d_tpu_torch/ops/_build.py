@@ -22,16 +22,17 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
-# -fmad=false: both kernels mirror f32 decisions of the JAX kernels (the
-# emit cull margin, the power > 0 and alpha < 1/255 cutoffs); contracting a
-# multiply and an add into one FMA would round differently from the plain
-# PyTorch versions and can move a tile across the cull margin.
+# -fmad=false: the kernels mirror f32 decisions of the JAX kernels (the
+# emit cull margin, the power > 0 and alpha < 1/255 cutoffs), and K3 must
+# replay K2's transmittance bit for bit; contracting a multiply and an add
+# into one FMA would round differently from the plain PyTorch versions and
+# can move a tile across the cull margin.
 # No --use_fast_math: 1/x and expf stay IEEE.
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
 # name -> (source file, C entry points with their ctypes argument types)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "emit": ("emit.cu", {
         # attrs, rank, out, n_pad, k_budget, tiles_x, n_tiles, mult, stream
@@ -41,6 +42,18 @@ KERNELS = {
         # attrs, pair_gauss, tile_start, tile_count, out, kend, n_tiles,
         # tiles_x, n_gauss, n_pairs, stream
         "sage3d_composite_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    }),
+    "composite_bwd": ("composite_bwd.cu", {
+        # attrs, pair_gauss, tile_start, tile_count, chunk0, allowed, fwd_out,
+        # gout, slots, n_tiles, tiles_x, n_gauss, n_pairs, c_cap, stream
+        "sage3d_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _P],
+    }),
+    "segreduce": ("segreduce.cu", {
+        # ids, perm (or NULL), rows, begin, end, out, n_rows, n_src_rows,
+        # row_stride, n_payload, n_out, stream
+        "sage3d_segment_reduce": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I,
+                                  _P],
     }),
 }
 

@@ -1,15 +1,25 @@
-"""Tile compositor on the hand-written CUDA kernel K2 (forward only).
+"""Tile compositor on the hand-written CUDA kernels K2 (forward), K3
+(backward) and K4 (the segment sum of the backward's gradient rows).
 
 Replaces the JAX module ``sage3d_tpu/ops/composite_pallas.py`` (the
 ``"pallas"`` backend); this is the ``"cuda"`` backend of ``render``.
 ``composite_tiles_cuda`` takes the arguments of ``composite_tiles_pallas`` and
 returns the same dict. The per-Gaussian (N, 16) attribute table keeps the
-JAX layout, Gaussian id in ``GID_COL``, so the backward kernels can reuse it.
+JAX layout, Gaussian id in ``GID_COL``.
 
-The kernel is ``csrc/composite_fwd.cu``; ``composite_fwd_plain`` is its plain
-PyTorch version. ``composite_fwd`` takes the plain version only for CPU
-tensors. The analytic backward (K3, and the segment reduction K4) is not
-ported yet: the ``cuda`` backend raises if an input requires grad.
+The autograd boundary is the JAX ``custom_vjp``'s, ``attrs -> (out, k_end)``
+(``_AttrComposite``). Its backward runs K3 (``csrc/composite_bwd.cu``) into a
+buffer of per-pair gradient rows, one 128-row slot per chunk the forward
+processed (packed by the forward's per-tile ``k_end``, at most
+``grad_capacity`` slots), each row carrying its Gaussian id; a stable sort
+groups the rows by id and K4 (``ops/segreduce.py``) sums them per Gaussian.
+Rows no pair fills carry the out-of-range id N: they sort last and add
+nothing.
+The sort's payload is exact f32 by default (``GRAD_SORT_DEFAULT``); ``"f16"``
+(per-channel absmax-scaled) and ``"bf16"`` are options.
+
+``composite_fwd_plain`` and ``composite_bwd_plain`` are the kernels' plain
+PyTorch versions; the wrappers take them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,13 +32,52 @@ from . import _build
 from .binning import TILE_H, TILE_W, TileBins
 from .composite_torch import _untile
 from .projection import ALPHA_MAX, ALPHA_MIN, ProjectedGaussians
+from .segreduce import segment_reduce_sorted
 
 CHUNK = 128             # pairs per chunk
 NPIX = TILE_W * TILE_H  # 1024 pixels per tile
 NFEAT = 16              # attribute-table columns
 NCH = 8                 # out channels: r,g,b,depth,alpha,trans,best_w,best_id
+NGRAD = 10              # gradient channels: d_a..d_cy, dop, df_r..df_d
 GID_COL = 11            # attr column carrying the Gaussian id (f32-exact < 2^24)
 TRANS_EPS = 1e-4        # early-termination threshold, per tile
+GRAD_SORT_DEFAULT = "f32"   # the backward's sort payload: exact f32
+GRAD_SORT_MODES = ("f32", "f16", "bf16")
+F16_SCALE = 30000.0     # "f16": each channel scaled to this absmax before the cast
+
+
+def _pixel_centers(dev):
+    """Tile-local pixel centers as (1, 1, NPIX) rows, x and y."""
+    pix = torch.arange(NPIX, device=dev)
+    px = ((pix % TILE_W).to(torch.float32) + 0.5)[None, None, :]
+    py = ((pix // TILE_W).to(torch.float32) + 0.5)[None, None, :]
+    return px, py
+
+
+def _plain_chunk(attrs, pair_gauss, start, count, k, ox, oy, px, py):
+    """Chunk ``k`` of a batch of tiles, as the kernels see it: the attribute
+    rows (b, CHUNK, NFEAT), the lanes holding a pair (b, CHUNK), and alpha
+    and its unclamped value (b, CHUNK, NPIX) in the kernels' tile-local form
+    and operation order; lanes without a pair have alpha 0."""
+    lanes = torch.arange(CHUNK, device=attrs.device)
+    valid = lanes[None, :] < (count - k * CHUNK)[:, None]
+    idx = torch.clamp(start[:, None] + k * CHUNK + lanes, 0,
+                      pair_gauss.shape[0] - 1)
+    co = attrs[pair_gauss[idx].long()]
+    a, bb, c = co[..., 0:1], co[..., 1:2], co[..., 2:3]
+    cx = co[..., 3:4] - ox
+    cy = co[..., 4:5] - oy
+    w0 = -0.5 * (a * cx * cx + c * cy * cy) - bb * cx * cy
+    wx = a * cx + bb * cy
+    wy = c * cy + bb * cx
+    power = (w0 + wx * px + wy * py - 0.5 * a * (px * px)
+             - 0.5 * c * (py * py) - bb * (px * py))
+    raw = co[..., 5:6] * torch.exp(torch.clamp(power, max=0.0))
+    raw = torch.where(power > 0.0, 0.0, raw)
+    raw = torch.where(valid[..., None], raw, 0.0)
+    alpha = torch.clamp(raw, max=ALPHA_MAX)
+    alpha = torch.where(alpha < ALPHA_MIN, 0.0, alpha)
+    return co, valid, alpha, raw
 
 
 def composite_fwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
@@ -39,11 +88,7 @@ def composite_fwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     (out (T, NCH, NPIX) float32, k_end (T,) int32)."""
     dev = attrs.device
     n_tiles = tile_start.shape[0]
-    n_pairs = pair_gauss.shape[0]
-    pix = torch.arange(NPIX, device=dev)
-    px = ((pix % TILE_W).to(torch.float32) + 0.5)[None, None, :]
-    py = ((pix // TILE_W).to(torch.float32) + 0.5)[None, None, :]
-    lanes = torch.arange(CHUNK, device=dev)
+    px, py = _pixel_centers(dev)
     outs, kends = [], []
     for t0 in range(0, n_tiles, tile_batch):
         tid = torch.arange(t0, min(t0 + tile_batch, n_tiles), device=dev)
@@ -63,22 +108,8 @@ def composite_fwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
             active = active & (k < n_chunks) & (trans.amax(-1) > TRANS_EPS)
             if not bool(active.any()):
                 break
-            valid = lanes[None, :] < (count - k * CHUNK)[:, None]   # (b, CHUNK)
-            idx = torch.clamp(start[:, None] + k * CHUNK + lanes, 0, n_pairs - 1)
-            co = attrs[pair_gauss[idx].long()]                        # (b, CHUNK, 16)
-            a, bb, c = co[..., 0:1], co[..., 1:2], co[..., 2:3]
-            cx = co[..., 3:4] - ox
-            cy = co[..., 4:5] - oy
-            w0 = -0.5 * (a * cx * cx + c * cy * cy) - bb * cx * cy
-            wx = a * cx + bb * cy
-            wy = c * cy + bb * cx
-            power = (w0 + wx * px + wy * py - 0.5 * a * (px * px)
-                     - 0.5 * c * (py * py) - bb * (px * py))         # (b, CHUNK, NPIX)
-            raw = co[..., 5:6] * torch.exp(torch.clamp(power, max=0.0))
-            raw = torch.where(power > 0.0, 0.0, raw)
-            raw = torch.where(valid[..., None], raw, 0.0)
-            alpha = torch.clamp(raw, max=ALPHA_MAX)
-            alpha = torch.where(alpha < ALPHA_MIN, 0.0, alpha)
+            co, valid, alpha, _ = _plain_chunk(attrs, pair_gauss, start,
+                                               count, k, ox, oy, px, py)
             # T before each pair: a running product seeded with the tile's
             # transmittance, in the kernel's left-to-right order.
             t_run = torch.cumprod(torch.cat([trans[:, None, :], 1.0 - alpha], 1), 1)
@@ -150,6 +181,230 @@ def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
 composite_fwd.launches = 0
 
 
+def _slot_buffer(c_cap: int, n_gauss: int, dev) -> torch.Tensor:
+    """The (c_cap * CHUNK, NFEAT) slot buffer before K3: zero payload and the
+    out-of-range id ``n_gauss`` in GID_COL, which the rows no pair fills
+    keep."""
+    slots = torch.zeros((c_cap * CHUNK, NFEAT), dtype=torch.float32, device=dev)
+    slots[:, GID_COL] = float(n_gauss)
+    return slots
+
+
+def composite_bwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
+                        tile_start: torch.Tensor, tile_count: torch.Tensor,
+                        chunk0: torch.Tensor, allowed: torch.Tensor,
+                        fwd_out: torch.Tensor, gout: torch.Tensor, c_cap: int,
+                        tiles_x: int, tile_batch: int = 32) -> torch.Tensor:
+    """Plain PyTorch version of K3, vectorized over tiles in batches: the
+    forward replayed as ``composite_fwd_plain`` computes it, the ten gradient
+    channels per pair summed over the tile's pixels, and row
+    ``(chunk0[t] + k) * CHUNK + i`` of ``_slot_buffer`` written for every
+    pair of the first ``allowed[t]`` chunks (Gaussian id in GID_COL)."""
+    dev = attrs.device
+    n_tiles = tile_start.shape[0]
+    px, py = _pixel_centers(dev)
+    lanes = torch.arange(CHUNK, device=dev)
+    slots = _slot_buffer(c_cap, attrs.shape[0], dev)
+    for t0 in range(0, n_tiles, tile_batch):
+        tid = torch.arange(t0, min(t0 + tile_batch, n_tiles), device=dev)
+        start = tile_start[tid].long()
+        count = tile_count[tid].long()
+        ch0 = chunk0[tid].long()
+        allow = allowed[tid].long()
+        ox = ((tid % tiles_x) * TILE_W).to(torch.float32)[:, None, None]
+        oy = ((tid // tiles_x) * TILE_H).to(torch.float32)[:, None, None]
+        g = gout[tid][:, :, None, :]                     # (b, NCH, 1, NPIX)
+        f = fwd_out[tid][:, :, None, :]
+        g0, g1, g2, g3, g4 = (g[:, ch] for ch in range(5))
+        s_pix = g0 * f[:, 0] + g1 * f[:, 1] + g2 * f[:, 2] + g3 * f[:, 3] \
+            + g4 * f[:, 4]
+        gtt = g[:, 5] * f[:, 5]
+        trans = torch.ones((tid.shape[0], NPIX), device=dev)
+        prefix = torch.zeros((tid.shape[0], 1, NPIX), device=dev)
+        for k in range(int(allow.max()) if tid.shape[0] else 0):
+            act = k < allow
+            co, valid, alpha, raw = _plain_chunk(attrs, pair_gauss, start,
+                                                 count, k, ox, oy, px, py)
+            t_run = torch.cumprod(torch.cat([trans[:, None, :], 1.0 - alpha],
+                                            1), 1)
+            t_at = t_run[:, :-1]
+            w = alpha * t_at
+            c = (co[..., 6:7] * g0 + co[..., 7:8] * g1 + co[..., 8:9] * g2
+                 + co[..., 9:10] * g3 + g4)
+            incl_cw = prefix + torch.cumsum(c * w, 1)
+            om = 1.0 - alpha
+            dalpha = c * t_at - (s_pix - incl_cw) / om - gtt / om
+            dalpha = torch.where((alpha > 0.0) & (raw <= ALPHA_MAX), dalpha, 0.0)
+            dpower = dalpha * alpha
+            op = co[..., 5]
+            dx = px - (co[..., 3:4] - ox)
+            dy = py - (co[..., 4:5] - oy)
+            zeros = torch.zeros_like(op)
+            rows = torch.stack([
+                (dpower * (-0.5 * dx * dx)).sum(-1),
+                (dpower * (-dx * dy)).sum(-1),
+                (dpower * (-0.5 * dy * dy)).sum(-1),
+                (dpower * (co[..., 0:1] * dx + co[..., 1:2] * dy)).sum(-1),
+                (dpower * (co[..., 2:3] * dy + co[..., 1:2] * dx)).sum(-1),
+                dpower.sum(-1) / torch.where(op > 0, op, 1.0),
+                (g0 * w).sum(-1), (g1 * w).sum(-1), (g2 * w).sum(-1),
+                (g3 * w).sum(-1),
+                zeros, co[..., GID_COL], zeros, zeros, zeros, zeros,
+            ], dim=-1)                                   # (b, CHUNK, NFEAT)
+            dest = (ch0 + k)[:, None] * CHUNK + lanes
+            keep = act[:, None] & valid
+            slots[dest[keep]] = rows[keep]
+            trans = torch.where(act[:, None], t_run[:, -1], trans)
+            prefix = torch.where(act[:, None, None], incl_cw[:, -1:], prefix)
+    return slots
+
+
+def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
+                  tile_start: torch.Tensor, tile_count: torch.Tensor,
+                  chunk0: torch.Tensor, allowed: torch.Tensor,
+                  fwd_out: torch.Tensor, gout: torch.Tensor, c_cap: int,
+                  tiles_x: int) -> torch.Tensor:
+    """K3 wrapper: the (c_cap * CHUNK, NFEAT) float32 slot buffer of per-pair
+    gradient rows (channels 0..NGRAD-1, Gaussian id in GID_COL). Rows no pair
+    fills (lanes past a chunk's last pair, slots past a tile's allowed
+    chunks) keep zero payload and the out-of-range id N = ``attrs.shape[0]``.
+
+    Tile ``t`` fills slots ``chunk0[t] .. chunk0[t] + allowed[t] - 1``; the
+    caller keeps those inside ``[0, c_cap)`` and ``allowed[t]`` within the
+    forward's ``k_end[t]``. ``fwd_out``/``gout`` are (T, NCH, NPIX) float32:
+    K2's output and its cotangent. A CPU tensor takes the plain version; a
+    CUDA tensor launches ``csrc/composite_bwd.cu``."""
+    ints = (pair_gauss, tile_start, tile_count, chunk0, allowed)
+    if attrs.dim() != 2 or attrs.shape[1] != NFEAT or attrs.dtype != torch.float32:
+        raise ValueError(f"attrs must be (N, {NFEAT}) float32")
+    if any(x.dtype != torch.int32 or x.dim() != 1 for x in ints):
+        raise ValueError("pair_gauss, tile_start, tile_count, chunk0 and "
+                         "allowed must be 1-D int32")
+    n_tiles = tile_start.shape[0]
+    if any(x.shape != (n_tiles,) for x in ints[2:]):
+        raise ValueError("tile ranges, chunk0 and allowed differ in shape")
+    for x in (fwd_out, gout):
+        if x.shape != (n_tiles, NCH, NPIX) or x.dtype != torch.float32:
+            raise ValueError(f"fwd_out and gout must be (T, {NCH}, {NPIX}) "
+                             "float32")
+    tensors = (attrs, *ints, fwd_out, gout)
+    if any(x.device != attrs.device for x in tensors):
+        raise ValueError("composite_bwd: inputs on different devices")
+    if attrs.device.type == "cpu":
+        return composite_bwd_plain(attrs, pair_gauss, tile_start, tile_count,
+                                   chunk0, allowed, fwd_out, gout, c_cap,
+                                   tiles_x)
+    if attrs.device.type != "cuda":
+        raise ValueError(f"composite_bwd: unsupported device {attrs.device}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("composite_bwd: inputs must be contiguous")
+    if max(attrs.shape[0], pair_gauss.shape[0], n_tiles, c_cap) >= 2**31:
+        raise ValueError("composite_bwd: sizes must fit int32")
+    slots = _slot_buffer(c_cap, attrs.shape[0], attrs.device)
+    lib = _build.load("composite_bwd")
+    with torch.cuda.device(attrs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sage3d_composite_bwd(
+            attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
+            tile_count.data_ptr(), chunk0.data_ptr(), allowed.data_ptr(),
+            fwd_out.data_ptr(), gout.data_ptr(), slots.data_ptr(), n_tiles,
+            tiles_x, attrs.shape[0], pair_gauss.shape[0], c_cap, stream)
+    _build.check(err, "composite_bwd")
+    composite_bwd.launches += 1
+    return slots
+
+
+composite_bwd.launches = 0
+
+
+def slot_ranges(kend: torch.Tensor, c_cap: int):
+    """Each tile's first gradient slot and its number of slots: the slots
+    are packed by the forward's k_end, and chunks past ``c_cap`` are cut
+    (counted as overflow by ``composite_tiles_cuda``). Returns (chunk0,
+    allowed), (T,) int32."""
+    kend = kend.long()
+    chunk0 = torch.cumsum(kend, 0) - kend
+    allowed = torch.clamp(torch.minimum(kend, c_cap - chunk0), min=0)
+    return chunk0.to(torch.int32), allowed.to(torch.int32)
+
+
+def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
+                  tile_start: torch.Tensor, tile_count: torch.Tensor,
+                  kend: torch.Tensor, fwd_out: torch.Tensor,
+                  gout: torch.Tensor, tiles_x: int, c_cap: int,
+                  grad_sort: str = GRAD_SORT_DEFAULT) -> torch.Tensor:
+    """The backward of ``attrs -> out``: d_attrs (N, NFEAT), columns NGRAD..
+    zero. K3 fills the slot buffer; a stable sort groups its rows by the
+    Gaussian id they carry; K4 sums each Gaussian's rows. The rows no pair
+    filled carry the id N: they sort last and K4 skips them, and the rows
+    of every Gaussian keep their order, so a larger ``c_cap`` changes no
+    bit of the result. Nothing waits for the device.
+
+    ``grad_sort`` picks the sort's payload: ``"f32"`` (exact, the default)
+    reads the slot rows through the sort's permutation; ``"f16"`` scales each
+    channel to an absmax of 30000 before the cast and divides the (N, NGRAD)
+    sums by the scales; ``"bf16"`` casts as is. The sums are f32 in every
+    mode."""
+    chunk0, allowed = slot_ranges(kend, c_cap)
+    slots = composite_bwd(attrs, pair_gauss, tile_start, tile_count, chunk0,
+                          allowed, fwd_out, gout, c_cap, tiles_x)
+    ids_sorted, perm = torch.sort(slots[:, GID_COL].to(torch.int32),
+                                  stable=True)
+    n = attrs.shape[0]
+    grads = slots[:, :NGRAD]
+    if grad_sort == "f32":
+        dg = segment_reduce_sorted(ids_sorted, grads, n, perm=perm)
+    elif grad_sort == "f16":
+        absmax = grads.abs().amax(0)
+        scales = F16_SCALE / torch.clamp(absmax, min=1e-30)
+        payload = (grads * scales).to(torch.float16)[perm].to(torch.float32)
+        dg = segment_reduce_sorted(ids_sorted, payload, n) / scales
+    elif grad_sort == "bf16":
+        payload = grads.to(torch.bfloat16)[perm].to(torch.float32)
+        dg = segment_reduce_sorted(ids_sorted, payload, n)
+    else:
+        raise ValueError(f"unknown grad_sort mode: {grad_sort}")
+    return torch.cat([dg, torch.zeros((n, NFEAT - NGRAD), dtype=dg.dtype,
+                                      device=dg.device)], 1)
+
+
+class _AttrComposite(torch.autograd.Function):
+    """``attrs -> (out, k_end)`` through K2, with the analytic backward of
+    ``composite_vjp``: the JAX package's ``custom_vjp`` boundary."""
+
+    @staticmethod
+    def forward(ctx, attrs, pair_gauss, tile_start, tile_count, tiles_x,
+                c_cap, grad_sort):
+        out, kend = composite_fwd(attrs, pair_gauss, tile_start, tile_count,
+                                  tiles_x)
+        ctx.mark_non_differentiable(kend)
+        ctx.save_for_backward(attrs, pair_gauss, tile_start, tile_count, kend,
+                              out)
+        ctx.tiles_x, ctx.c_cap, ctx.grad_sort = tiles_x, c_cap, grad_sort
+        return out, kend
+
+    @staticmethod
+    def backward(ctx, gout, _gkend):
+        attrs, pair_gauss, tile_start, tile_count, kend, out = ctx.saved_tensors
+        d_attrs = composite_vjp(attrs, pair_gauss, tile_start, tile_count,
+                                kend, out, gout.contiguous(), ctx.tiles_x,
+                                ctx.c_cap, ctx.grad_sort)
+        return d_attrs, None, None, None, None, None, None
+
+
+def attr_composite(attrs: torch.Tensor, pair_gauss: torch.Tensor,
+                   tile_start: torch.Tensor, tile_count: torch.Tensor,
+                   tiles_x: int, c_cap: int,
+                   grad_sort: str = GRAD_SORT_DEFAULT):
+    """Differentiable ``attrs -> (out (T, NCH, NPIX), k_end (T,))``: K2
+    forward; backward through K3, the sort and K4 into a gradient buffer of
+    ``c_cap`` chunk slots. ``k_end`` carries no gradient."""
+    if grad_sort not in GRAD_SORT_MODES:
+        raise ValueError(f"unknown grad_sort mode: {grad_sort}")
+    return _AttrComposite.apply(attrs, pair_gauss, tile_start, tile_count,
+                                tiles_x, int(c_cap), grad_sort)
+
+
 def attribute_table(proj: ProjectedGaussians,
                     semantic_ids: torch.Tensor) -> torch.Tensor:
     """The per-Gaussian (N, NFEAT) table: conic a/b/c, mean x/y, opacity,
@@ -192,22 +447,26 @@ def composite_tiles_cuda(
     height: int,
     tile_capacity: int = 4096,
     pair_capacity: int = 0,
+    grad_sort_bf16: bool = False,
+    grad_sort: str = None,
     grad_capacity: int = 0,
 ) -> Dict[str, torch.Tensor]:
-    """Composite via kernel K2. Same output schema as ``composite_tiles``.
+    """Composite via kernel K2, differentiable through K3 and K4. Same output
+    schema as ``composite_tiles``.
 
     ``pair_capacity`` (0 = the binning entry budget) trims the sorted pair
     array; trimmed pairs are counted as overflow. ``grad_capacity`` (in
     CHUNK-sized slots; 0 = the safe bound pair_capacity//CHUNK + n_tiles) is
     the backward's gradient buffer: the forward's total k_end
     (``grad_chunks``) beyond it is counted in ``tile_overflow``, so an
-    undersized capacity never passes silently.
+    undersized capacity never passes silently. ``grad_sort``: the backward's
+    sort payload, ``"f32"`` (default, exact), ``"f16"`` or ``"bf16"``;
+    ``grad_sort_bf16=True`` is the JAX package's alias for ``"bf16"``.
     """
-    if any(isinstance(x, torch.Tensor) and x.requires_grad for x in proj):
-        raise NotImplementedError(
-            "the cuda backend is forward-only: its analytic backward (kernels "
-            "K3 and K4) comes with the next slice of the port; render under "
-            "torch.no_grad() or use backend='torch'")
+    mode = grad_sort if grad_sort is not None else (
+        "bf16" if grad_sort_bf16 else GRAD_SORT_DEFAULT)
+    if mode not in GRAD_SORT_MODES:
+        raise ValueError(f"unknown grad_sort mode: {mode}")
     tiles_x, tiles_y = bins.tiles_x, bins.tiles_y
     n_tiles = tiles_x * tiles_y
     pair_gauss_t, tile_start_t, tile_count_t, pair_capacity = trim_to_capacity(
@@ -226,8 +485,8 @@ def composite_tiles_cuda(
             "of the backward would mis-route gradients. Use the torch "
             "compositor or shard the scene.")
     attrs = attribute_table(proj, semantic_ids)
-    out, kend = composite_fwd(attrs, pair_gauss_t, tile_start_t, count_c,
-                              tiles_x)
+    out, kend = attr_composite(attrs, pair_gauss_t, tile_start_t, count_c,
+                               tiles_x, c_cap, mode)
     grad_chunks = torch.sum(kend)
     grad_overflow = torch.clamp(grad_chunks - c_cap, min=0) * CHUNK
 

@@ -8,8 +8,9 @@ Backends:
   * ``"oracle"``: exact per-pixel reference (tests / small scenes).
   * ``"torch"``:  tiled compositor in plain PyTorch (ops/composite_torch.py;
                   the JAX package's ``"xla"``), differentiable.
-  * ``"cuda"``:   hand-written kernel K2 (ops/composite_cuda.py; the JAX
-                  package's ``"pallas"``), forward only for now.
+  * ``"cuda"``:   hand-written kernels (ops/composite_cuda.py; the JAX
+                  package's ``"pallas"``): K2 forward, K3 and K4 backward.
+All three are differentiable w.r.t. the scene parameters.
 
 ``render`` runs where the scene's tensors are. On a CPU scene the ``cuda``
 backend runs the kernels' plain versions.
@@ -161,6 +162,8 @@ def render(
     k_big: int = 256,
     m_mid: int = 0,
     k_mid: int = 0,
+    grad_sort_bf16: bool = False,
+    grad_sort: Optional[str] = None,
     grad_capacity: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Render one camera. Returns a dict:
@@ -174,6 +177,10 @@ def render(
       rgb_acc:   (H, W, 3) premultiplied color before the background
       overflow:  () int32 dropped pairs (capacity accounting; 0 in correct runs)
       grad_chunks: () chunks the cuda compositor processed (0 elsewhere)
+
+    ``grad_sort`` (``"f32"`` default, ``"f16"``, ``"bf16"``; alias
+    ``grad_sort_bf16``) and ``grad_capacity`` set the ``cuda`` backend's
+    backward; other backends ignore them.
     """
     width, height = camera.width, camera.height
     dev = scene.device
@@ -198,6 +205,8 @@ def render(
             out = composite_tiles_cuda(proj, scene.semantic_ids, bins, width,
                                        height, tile_capacity=tile_capacity,
                                        pair_capacity=pair_capacity,
+                                       grad_sort_bf16=grad_sort_bf16,
+                                       grad_sort=grad_sort,
                                        grad_capacity=grad_capacity)
         overflow = (bins.overflow + out.pop("tile_overflow")).to(torch.int32)
     else:

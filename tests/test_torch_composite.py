@@ -166,12 +166,32 @@ def test_quad_coeffs_and_pixel_basis_match(rng):
                                   np.asarray(jxla.pixel_basis(32, 32)))
 
 
-def test_cuda_backend_is_forward_only():
-    _, cam, _, _, tproj, tbins, sem = _setup("room")
-    grad_proj = tproj._replace(means2d=tproj.means2d.clone().requires_grad_())
-    with pytest.raises(NotImplementedError, match="K3"):
-        tcu.composite_tiles_cuda(grad_proj, torch.from_numpy(np.array(sem)),
-                                 tbins, cam.width, cam.height)
+def test_cuda_backend_gradient_matches_pallas():
+    _, cam, proj, bins, tproj, tbins, sem = _setup("room")
+    fields = ("means2d", "conics", "opacities", "colors", "depths")
+    wts = np.random.default_rng(2).normal(
+        size=(cam.height, cam.width, 3)).astype(np.float32)
+
+    def jloss(p):
+        out = jpal.composite_tiles_pallas(proj._replace(**p), sem, bins,
+                                          cam.width, cam.height)
+        return jnp.sum(out["rgb"] * wts) + 0.1 * jnp.sum(out["depth_acc"]) \
+            + 0.2 * jnp.sum(out["alpha"]) - 0.3 * jnp.sum(out["trans"])
+
+    want = jax.grad(jloss)({f: getattr(proj, f) for f in fields})
+    p = {f: getattr(tproj, f).clone().requires_grad_() for f in fields}
+    out = tcu.composite_tiles_cuda(tproj._replace(**p),
+                                   torch.from_numpy(np.array(sem)), tbins,
+                                   cam.width, cam.height)
+    (torch.sum(out["rgb"] * torch.from_numpy(wts))
+     + 0.1 * torch.sum(out["depth_acc"]) + 0.2 * torch.sum(out["alpha"])
+     - 0.3 * torch.sum(out["trans"])).backward()
+    for f in fields:
+        w = np.asarray(want[f])
+        scale = np.abs(w).max()
+        assert scale > 0, f
+        np.testing.assert_allclose(p[f].grad.numpy() / scale, w / scale,
+                                   atol=3e-4, err_msg=f)
 
 
 def test_k2_wrapper_checks_inputs():

@@ -11,13 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from sage3d_tpu_torch.ops import binning, composite_cuda
+from sage3d_tpu_torch.ops import binning, composite_cuda, segreduce
 from sage3d_tpu_torch.ops.projection import project_gaussians
 from sage3d_tpu_torch.renderer import render as trender
 from sage3d_tpu_torch.renderer.camera import make_camera
 from sage3d_tpu_torch.renderer.scene import synthetic_room
 
 pytestmark = pytest.mark.gpu
+PARAMS = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
 
 def _need_card(what: str):
@@ -92,9 +93,78 @@ def test_cuda_backend_matches_torch_backend_and_oracle():
     assert np.isfinite(a["depth"].cpu().numpy()).all()
 
 
-def test_cuda_backend_refuses_gradients():
+def _k3_inputs():
+    """Frame inputs of K3 at 320x256: the attribute table, the pair lists,
+    K2's output, a seeded cotangent and the slot ranges."""
+    scene, cam, bk = _frame()
+    with torch.no_grad():
+        proj = project_gaussians(scene, cam)
+        bins = binning.bin_gaussians(
+            proj, cam.width, cam.height,
+            **{k: bk[k] for k in binning.EMIT_BUDGET_KEYS})
+    attrs = composite_cuda.attribute_table(proj, scene.semantic_ids)
+    pg, start, count, _ = composite_cuda.trim_to_capacity(bins)
+    out, kend = composite_cuda.composite_fwd(attrs, pg, start, count,
+                                             bins.tiles_x)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    gout = torch.randn(out.shape, generator=gen, device="cuda")
+    c_cap = int(kend.sum()) + 8
+    chunk0, allowed = composite_cuda.slot_ranges(kend, c_cap)
+    return (attrs, pg, start, count, chunk0, allowed, out, gout, c_cap,
+            bins.tiles_x), kend
+
+
+def test_backward_kernel_matches_plain():
+    _need_card("K3")
+    args, kend = _k3_inputs()
+    want = composite_cuda.composite_bwd_plain(*args)
+    before = composite_cuda.composite_bwd.launches
+    got = composite_cuda.composite_bwd(*args)
+    torch.cuda.synchronize()
+    assert composite_cuda.composite_bwd.launches == before + 1
+    used = int(kend.sum()) * composite_cuda.CHUNK
+    # unfilled slots: zero payload and the out-of-range id N
+    assert float(got[used:, :composite_cuda.NGRAD].abs().max()) == 0.0
+    assert bool((got[used:, composite_cuda.GID_COL] == args[0].shape[0]).all())
+    assert torch.equal(got[:, composite_cuda.GID_COL],
+                       want[:, composite_cuda.GID_COL])
+    for ch in range(composite_cuda.NGRAD):
+        scale = float(want[:, ch].abs().max())
+        torch.testing.assert_close(got[:, ch], want[:, ch], rtol=0,
+                                   atol=2e-4 * scale)
+    assert torch.equal(composite_cuda.composite_bwd(*args), got)
+
+
+def test_segment_reduce_kernel_matches_plain():
+    _need_card("K4")
+    args, _ = _k3_inputs()
+    slots = composite_cuda.composite_bwd(*args)
+    ids, perm = torch.sort(slots[:, composite_cuda.GID_COL].int(), stable=True)
+    rows = slots[:, :composite_cuda.NGRAD]
+    n = args[0].shape[0]
+    want = segreduce.segment_reduce_plain(ids, rows, n, perm=perm)
+    before = segreduce.segment_reduce_sorted.launches
+    got = segreduce.segment_reduce_sorted(ids, rows, n, perm=perm)
+    again = segreduce.segment_reduce_sorted(ids, rows, n, perm=perm)
+    torch.cuda.synchronize()
+    assert segreduce.segment_reduce_sorted.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, again)        # deterministic: no atomics
+
+
+def test_cuda_backend_gradients_match_torch_backend():
     _need_card("the cuda backend")
-    scene, cam, bk = _frame(n=2000)
-    means = scene.means.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="K3"):
-        trender.render(scene._replace(means=means), cam, backend="cuda", **bk)
+    scene, cam, bk = _frame()
+    grads = {}
+    for backend in ("cuda", "torch"):
+        params = {k: getattr(scene, k).clone().requires_grad_()
+                  for k in PARAMS}
+        out = trender.render(scene._replace(**params), cam, backend=backend,
+                             **bk)
+        assert int(out["overflow"]) == 0
+        torch.mean((out["rgb"] - 0.5) ** 2).backward()
+        grads[backend] = {k: params[k].grad for k in PARAMS}
+    for k in PARAMS:
+        ref = grads["torch"][k]
+        err = float((grads["cuda"][k] - ref).abs().max())
+        assert err <= 5e-4 * float(ref.abs().max()), k
