@@ -47,7 +47,21 @@ no result line):
      the device's busy time per frame and per stage, from torch.profiler
      traces (CUDA activity only) of unsynchronized loops, and the idle share
      of a ``render()`` frame; each kernel against its plain version at the
-     1080p frame, with the least time the card could take for the same work.
+     1080p frame, with the least time the card could take for the same work;
+  7. the bench path (``sage3d_tpu_torch.benchmarks.bench.run``): the
+     1920x1080 frame of ``bench.py``'s 1M-Gaussian box with ``autotune``
+     budgets; the ``cuda`` fwd+bwd step in the f32, f16 and bf16 gradient
+     sorts, the ``torch`` step, parity of ``cuda`` against ``torch`` at
+     800x800 and 1080p (each ``allclose``, overflow 0) and the SH3 step,
+     with K1-K4 counted from 0; its full and compact result lines; then the
+     device's busy time, idle share and top kernels of a ``cuda`` f32 step
+     (torch.profiler);
+  8. the K2 anatomy probe (``csrc/composite_anatomy.cu``) on the bench
+     frame: each of its six variants against its plain version, the
+     production variant (early stop on, every block) bitwise against K2;
+     then ``kernel_anatomy.measure``, counted from 0: the variants' times
+     and registers per thread, the batch-of-4 ratio and the five deltas,
+     and the probe's bound (K2's bytes and operations over every chunk).
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -57,7 +71,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -130,14 +143,6 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def nvidia_smi_line() -> str:
-    """The first card's name and power limit, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def smoke_frames(device) -> dict:
     """The three frames, as label -> (scene, camera):
 
@@ -187,7 +192,54 @@ def device_busy(fn, reps: int = PROFILE_REPS):
             sum(e.count for e in evts) / reps, top)
 
 
+def walked_pairs(pg, start, count, chunks):
+    """Pairs walked per tile in ``chunks[t]`` chunks of a frame's pair list,
+    and the number of distinct Gaussians they name."""
+    import torch
+    from sage3d_tpu_torch.ops.composite_cuda import CHUNK
+    walked = torch.minimum(count, chunks * CHUNK)
+    edges = torch.zeros(pg.shape[0] + 1, dtype=torch.int32, device=pg.device)
+    edges.index_add_(0, start.long(), torch.ones_like(walked))
+    edges.index_add_(0, (start + walked).long(), -torch.ones_like(walked))
+    seen = torch.cumsum(edges, 0, dtype=torch.int32)[:-1] > 0
+    return walked, int(torch.unique(pg[seen]).numel())
+
+
+def alpha_hits(attrs, pg, start, count, tiles_x, chunks) -> int:
+    """Pair-pixel evaluations with alpha > 0 in the first ``chunks[t]``
+    chunks of every tile, by the plain versions' alpha."""
+    import torch
+    from sage3d_tpu_torch.ops import composite_cuda as cc
+    dev = attrs.device
+    n_t = start.shape[0]
+    px, py = cc._pixel_centers(dev)
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for t0 in range(0, n_t, 64):
+            tid = torch.arange(t0, min(t0 + 64, n_t), device=dev)
+            ox = ((tid % tiles_x) * cc.TILE_W).float()[:, None, None]
+            oy = ((tid // tiles_x) * cc.TILE_H).float()[:, None, None]
+            walk = chunks[tid].long()
+            for k in range(int(walk.max())):
+                alpha = cc._plain_chunk(attrs, pg, start[tid].long(),
+                                        count[tid].long(), k, ox, oy, px,
+                                        py)[2]
+                hits += ((alpha > 0) & (k < walk)[:, None, None]).sum()
+    return int(hits)
+
+
+def ops_bound(n_bytes, evals, per_eval, hits, per_hit):
+    """The least time in ms for ``n_bytes`` moved and the operations of
+    ``evals`` pair-pixel evaluations and ``hits`` of them with alpha > 0,
+    and what sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = (evals * per_eval + hits * per_hit) / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -195,6 +247,8 @@ def main() -> int:
         return 2
 
     import numpy as np
+    from sage3d_tpu_torch.benchmarks import bench, kernel_anatomy
+    from sage3d_tpu_torch.benchmarks._util import nvidia_smi_line
     from sage3d_tpu_torch.ops import _build, binning, composite_cuda, segreduce
     from sage3d_tpu_torch.ops.projection import project_gaussians
     from sage3d_tpu_torch.parallel import train
@@ -685,47 +739,11 @@ def main() -> int:
     # Bytes K2 must move: the pair ids of the chunks it walked, columns 0-10
     # of each Gaussian they name, the tile ranges, the images and k_end.
     n_t = start.shape[0]
-
-    def walked_pairs(chunks):
-        """Pairs walked per tile in ``chunks`` chunks, and the number of
-        distinct Gaussians they name."""
-        walked = torch.minimum(count, chunks * cc.CHUNK)
-        edges = torch.zeros(pg.shape[0] + 1, dtype=torch.int32, device=dev)
-        edges.index_add_(0, start.long(), torch.ones_like(walked))
-        edges.index_add_(0, (start + walked).long(), -torch.ones_like(walked))
-        seen = torch.cumsum(edges, 0, dtype=torch.int32)[:-1] > 0
-        return walked, int(torch.unique(pg[seen]).numel())
-
-    def alpha_hits(chunks):
-        """Pair-pixel evaluations with alpha > 0 in the first ``chunks[t]``
-        chunks of every tile, by the plain versions' alpha."""
-        px, py = cc._pixel_centers(dev)
-        hits = torch.zeros((), dtype=torch.int64, device=dev)
-        with torch.no_grad():
-            for t0 in range(0, n_t, 64):
-                tid = torch.arange(t0, min(t0 + 64, n_t), device=dev)
-                ox = ((tid % plan.tiles_x) * cc.TILE_W).float()[:, None, None]
-                oy = ((tid // plan.tiles_x) * cc.TILE_H).float()[:, None, None]
-                walk = chunks[tid].long()
-                for k in range(int(walk.max())):
-                    alpha = cc._plain_chunk(attrs_a, pg, start[tid].long(),
-                                            count[tid].long(), k, ox, oy, px,
-                                            py)[2]
-                    hits += ((alpha > 0) & (k < walk)[:, None, None]).sum()
-        return int(hits)
-
-    def ops_bound(n_bytes, evals, per_eval, hits, per_hit):
-        """The bound in ms and what sets it."""
-        t_bytes = n_bytes / HBM_BYTES_PER_S
-        t_ops = (evals * per_eval + hits * per_hit) / FP32_OPS_PER_S
-        return max(t_bytes, t_ops) * 1e3, (
-            "bytes" if t_bytes >= t_ops else "operations")
-
-    walked, n_read = walked_pairs(kend_k)
+    walked, n_read = walked_pairs(pg, start, count, kend_k)
     k2_bytes = (n_read * 11 * 4 + int(walked.sum()) * 4 + n_t * 8
                 + n_t * composite_cuda.NCH * composite_cuda.NPIX * 4 + n_t * 4)
     k2_evals = float(walked.double().sum()) * composite_cuda.NPIX
-    k2_hits = alpha_hits(kend_k)
+    k2_hits = alpha_hits(attrs_a, pg, start, count, plan.tiles_x, kend_k)
     k2_bound, k2_by = ops_bound(k2_bytes, k2_evals, K2_OPS_PER_EVAL, k2_hits,
                                 K2_OPS_PER_HIT)
     print(f"K1 at frame a {card}: kernel {k1_ms:.3f} ms for {len(plan.tiers)} "
@@ -745,12 +763,12 @@ def main() -> int:
     # their cotangent, and one 16-float slot row written per walked pair;
     # operations: K3_OPS_PER_EVAL per pair-pixel evaluation of its walk and
     # K3_OPS_PER_HIT more per evaluation with alpha > 0.
-    walked3, n_read3 = walked_pairs(allowed_a)
+    walked3, n_read3 = walked_pairs(pg, start, count, allowed_a)
     n_walked3 = int(walked3.sum())
     k3_bytes = (n_read3 * 12 * 4 + n_walked3 * 4
                 + 2 * n_t * 6 * cc.NPIX * 4 + n_walked3 * cc.NFEAT * 4)
     k3_evals = float(walked3.double().sum()) * cc.NPIX
-    k3_hits = alpha_hits(allowed_a)
+    k3_hits = alpha_hits(attrs_a, pg, start, count, plan.tiles_x, allowed_a)
     k3_bound, k3_by = ops_bound(k3_bytes, k3_evals, K3_OPS_PER_EVAL, k3_hits,
                                 K3_OPS_PER_HIT)
 
@@ -783,6 +801,115 @@ def main() -> int:
     print(f"K4 at frame a {card}: kernel {k4_ms:.3f} ms, plain "
           f"{k4_plain_ms:.3f} ms, index_add_ {k4_lib_ms:.3f} ms, bound "
           f"{k4_bound:.4f} ms ({k4_by}: {k4_bytes / 1e6:.1f} MB)", flush=True)
+
+    # 7. the bench path -----------------------------------------------------------
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = bench.run(device=dev)
+    torch.cuda.synchronize()
+    launches_bench = {k: fn.launches for k, fn in counters.items()}
+    print(json.dumps(result))
+    print(json.dumps(bench.compact(result)), flush=True)
+    det = result["detail"]
+    print(f"bench {card}: {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launches_bench)}", flush=True)
+    for res in ("800x800", "1080p"):
+        check(det["PARITY"][res]["allclose"],
+              f"bench parity {res}: cuda (f32, f16, bf16 sorts) allclose to "
+              "torch")
+    check(det["overflow_pairs"] == 0, "bench frame: overflow_pairs == 0")
+    check(all(np.isfinite(det[k]) and det[k] > 0 for k in
+              ("cuda_step_s", "cuda_f16_sort_step_s", "cuda_bf16_sort_step_s",
+               "torch_step_s", "sh3_step_s")), "bench step times finite")
+    check(all(v > 0 for v in launches_bench.values()),
+          "the bench path launched K1, K2, K3 and K4")
+
+    # Where the bench step's time goes: device busy per cuda f32 step (the
+    # same seeded scene and budgets), against the step's median time above.
+    scene_b = bench.make_bench_scene(device=dev)
+    cam_b = bench.bench_camera(device=dev)
+    budgets_b = bench.autotune(scene_b, cam_b)
+
+    def bench_step():
+        leaf = scene_b.opacity_logits.detach().requires_grad_()
+        loss = bench.bench_loss(scene_b._replace(opacity_logits=leaf), cam_b,
+                                "cuda", budgets_b)
+        torch.autograd.grad(loss, leaf)
+
+    busy_b, n_ops_b, top_b = device_busy(bench_step, reps=5)
+    step_b = det["cuda_step_median_s"] * 1e3
+    print(f"device bench {card}: busy {busy_b:.3f} ms per cuda f32 step of "
+          f"{step_b:.3f} ms (median), idle share {1.0 - busy_b / step_b:.3f}; "
+          f"{n_ops_b:.0f} kernels and copies per step (torch.profiler, CUDA "
+          f"activity only, 5 unsynchronized steps)", flush=True)
+    for kname, kms, kn in top_b:
+        print(f"  top kernel bench: {kms:.3f} ms, {kn:g} launches: {kname}",
+              flush=True)
+
+    # 8. the anatomy probe ---------------------------------------------------------
+    # Each variant against its plain version on the bench frame (the
+    # tolerances of K2's CPU parity tests), the production variant bitwise
+    # against K2; then the timed variants, counted as the main path.
+    inp = kernel_anatomy.prepare(scene_b, cam_b, budgets_b)
+    del scene_b
+    p_args = (inp["attrs"], inp["pair_gauss"], inp["tile_start"],
+              inp["tile_count"])
+    probe_err = 0.0
+    for name, flags in kernel_anatomy.VARIANTS.items():
+        got = kernel_anatomy.make_variant(inp["n_tiles"], inp["tiles_x"],
+                                          **flags)(*p_args)
+        want = kernel_anatomy.variant_plain(*p_args, inp["tiles_x"], **flags)
+        torch.cuda.synchronize()
+        err = max(float((got[:, ch] - want[:, ch]).abs().max())
+                  for ch in (0, 1, 2, 4, 5))
+        probe_err = max(probe_err, err)
+        close = (all(torch.allclose(got[:, ch], want[:, ch], rtol=1e-4,
+                                    atol=1e-4) for ch in (0, 1, 2, 4, 5, 6))
+                 and torch.allclose(got[:, 3], want[:, 3], rtol=1e-3,
+                                    atol=1e-3))
+        sem = float((got[:, 7] == want[:, 7]).float().mean())
+        print(f"probe {name} vs plain: max_abs rgb/alpha/trans {err:.3e}, "
+              f"semantic agreement {sem:.6f}", flush=True)
+        check(close and sem >= SEM_MIN,
+              f"probe {name}: within rtol=atol=1e-4 (depth 1e-3) of plain")
+        if name == kernel_anatomy.PRODUCTION:
+            k2_out, k2_kend = composite_cuda.composite_fwd(*p_args,
+                                                           inp["tiles_x"])
+            check(torch.equal(got, k2_out),
+                  "probe, early stop on, all blocks: bitwise equal to K2 on "
+                  "the bench frame")
+    probe_plain_ms = cuda_ms(lambda: kernel_anatomy.variant_plain(
+        *p_args, inp["tiles_x"], **kernel_anatomy.BASE), reps=2, warmup=1)
+    kernel_anatomy.composite_anatomy.launches = 0
+    anatomy = kernel_anatomy.measure(inp)
+    torch.cuda.synchronize()
+    probe_launches = kernel_anatomy.composite_anatomy.launches
+    # The bound of the early-stop-off full variant: K2's bytes and operations
+    # (K2_OPS_PER_EVAL, K2_OPS_PER_HIT) over every chunk of every tile.
+    p_count = inp["tile_count"]
+    all_chunks = (p_count + cc.CHUNK - 1) // cc.CHUNK
+    p_walked, p_read = walked_pairs(inp["pair_gauss"], inp["tile_start"],
+                                    p_count, all_chunks)
+    n_tb = p_count.shape[0]
+    p_bytes = (p_read * 11 * 4 + int(p_walked.sum()) * 4 + n_tb * 8
+               + n_tb * cc.NCH * cc.NPIX * 4)
+    p_evals = float(p_walked.double().sum()) * cc.NPIX
+    p_hits = alpha_hits(inp["attrs"], inp["pair_gauss"], inp["tile_start"],
+                        p_count, inp["tiles_x"], all_chunks)
+    probe_bound, probe_by = ops_bound(p_bytes, p_evals, K2_OPS_PER_EVAL,
+                                      p_hits, K2_OPS_PER_HIT)
+    k2_bench_walk = float(walked_pairs(inp["pair_gauss"], inp["tile_start"],
+                                       p_count, k2_kend)[0].double().sum())
+    base_ms = anatomy["variants"][kernel_anatomy.BASELINE]["ms"]
+    print(f"probe at the bench frame {card}: {probe_launches} launches; "
+          f"early stop off, all blocks {base_ms:.3f} ms, plain "
+          f"{probe_plain_ms:.3f} ms, bound {probe_bound:.3f} ms ({probe_by}: "
+          f"{p_bytes / 1e6:.1f} MB, {p_evals:.4e} pair-pixel evaluations, "
+          f"{p_hits:.4e} with alpha > 0); {int(p_count.sum())} pairs, "
+          f"{n_tb} tiles, K2 walks {k2_bench_walk:.0f} pairs "
+          f"(sum k_end {int(k2_kend.sum())})", flush=True)
+    check(probe_launches > 0, "the anatomy run launched the probe kernel")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB", flush=True)
 
@@ -790,7 +917,8 @@ def main() -> int:
         {"name": "K1 emit_tile_keys", "route": "cuda",
          "source": "sage3d_tpu_torch/csrc/emit.cu",
          "replaces": "sage3d_tpu/ops/binning.py:153",
-         "launches": launches["emit"] + launches_train["emit"],
+         "launches": launches["emit"] + launches_train["emit"]
+         + launches_bench["emit"],
          "max_abs_err": 0.0 if k1_equal else None,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -798,24 +926,37 @@ def main() -> int:
          "source": "sage3d_tpu_torch/csrc/composite_fwd.cu",
          "replaces": "sage3d_tpu/ops/composite_pallas.py:156",
          "launches": launches["composite_fwd"]
-         + launches_train["composite_fwd"], "max_abs_err": k2_err,
+         + launches_train["composite_fwd"] + launches_bench["composite_fwd"],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "K3 composite_bwd", "route": "cuda",
          "source": "sage3d_tpu_torch/csrc/composite_bwd.cu",
          "replaces": "sage3d_tpu/ops/composite_pallas.py:249",
-         "launches": launches_train["composite_bwd"], "max_abs_err": k3_err,
+         "launches": launches_train["composite_bwd"]
+         + launches_bench["composite_bwd"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "K4 segment_reduce_sorted", "route": "cuda",
          "source": "sage3d_tpu_torch/csrc/segreduce.cu",
          "replaces": "sage3d_tpu/ops/segreduce.py:55",
-         "launches": launches_train["segreduce"], "max_abs_err": k4_err,
+         "launches": launches_train["segreduce"] + launches_bench["segreduce"],
+         "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": k4_lib_ms},
+        {"name": "K2 anatomy probe", "route": "cuda",
+         "source": "sage3d_tpu_torch/csrc/composite_anatomy.cu",
+         "replaces": "benchmarks/kernel_anatomy.py:44",
+         "launches": probe_launches, "max_abs_err": probe_err,
+         "ms": base_ms, "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
+         "bound_by": probe_by, "library_ms": None,
+         "variant_ms": {n: v["ms"] for n, v in anatomy["variants"].items()},
+         "registers": {n: v["registers"]
+                       for n, v in anatomy["variants"].items()}},
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel of the path launched on the main path")
+    print(f"chip_smoke ran {time.perf_counter() - t_script:.1f} s", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}",
               file=sys.stderr)

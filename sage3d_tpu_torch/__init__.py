@@ -6,8 +6,10 @@ reference it is tested against. It imports neither JAX nor ``sage3d_tpu``.
 It holds the differentiable render path: scene and camera, projection,
 binning (kernel K1, ``csrc/emit.cu``), the tile compositor (kernel K2,
 ``csrc/composite_fwd.cu``) and its analytic backward (kernels K3,
-``csrc/composite_bwd.cu``, and K4, ``csrc/segreduce.cu``); and single-device
-scene training (``parallel/``: train step, checkpoints, ``fit_scene``).
+``csrc/composite_bwd.cu``, and K4, ``csrc/segreduce.cu``); single-device
+scene training (``parallel/``: train step, checkpoints, ``fit_scene``); and
+its measurement scripts (``benchmarks/``: the fwd+bwd bench and the K2
+anatomy probe, kernel ``csrc/composite_anatomy.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

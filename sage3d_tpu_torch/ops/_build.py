@@ -49,6 +49,16 @@ KERNELS = {
         "sage3d_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _P],
     }),
+    "composite_anatomy": ("composite_anatomy.cu", {
+        # attrs, pair_gauss, tile_start, tile_count, out, n_tiles, tiles_x,
+        # n_gauss, n_pairs, batch, early_term, do_exp, do_scan, do_blend,
+        # do_argmax, stream
+        "sage3d_composite_anatomy": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _P],
+        # early_term, do_exp, do_scan, do_blend, do_argmax, int* registers
+        "sage3d_composite_anatomy_regs": [_I, _I, _I, _I, _I,
+                                          ctypes.POINTER(ctypes.c_int)],
+    }),
     "segreduce": ("segreduce.cu", {
         # ids, perm (or NULL), rows, begin, end, out, n_rows, n_src_rows,
         # row_stride, n_payload, n_out, stream

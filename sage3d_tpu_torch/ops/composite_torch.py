@@ -14,6 +14,12 @@ backend); this is the ``"torch"`` backend of ``render``. Same algorithm:
 The JAX version maps over all tiles at once; here tiles go in batches of
 ``tile_batch`` so memory stays bounded at 1080p, and each batch stops at its
 longest tile's last chunk (later chunks hold no pairs and add exactly zero).
+
+Under autograd each chunk step is rematerialised, as the JAX version's
+``jax.checkpoint``: the backward recomputes the chunk's (tile_batch, 1024,
+chunk) alpha and weight matrices from the chunk's inputs instead of keeping
+them, so what the backward holds per chunk is its carry and gathered pair
+features, not ~33 MB of matrices at tile_batch 64.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import contextlib
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .binning import TILE_H, TILE_W, TileBins
 from .projection import ALPHA_MAX, ALPHA_MIN, ProjectedGaussians
@@ -77,6 +84,41 @@ def _untile(x: torch.Tensor, tiles_x: int, tiles_y: int, width: int,
     return x.reshape(tiles_y * TILE_H, tiles_x * TILE_W, c)[:height, :width]
 
 
+def _chunk_step(log_T, acc, best_w, best_id, co, op, ft, sm, Xb):
+    """One chunk of a batch of tiles: the carry (log_T, acc, best_w, best_id)
+    after blending the chunk's pairs, whose quadratic coefficients ``co``
+    (b, chunk, 6), opacities ``op``, blended features ``ft`` (rgb, depth, 1)
+    and semantic ids ``sm`` are given; ``Xb`` the pixel basis columns."""
+    cos = [co[:, None, :, i] for i in range(6)]         # (b, 1, chunk)
+    power = (cos[0] + Xb[1] * cos[1] + Xb[2] * cos[2]
+             + Xb[3] * cos[3] + Xb[4] * cos[4] + Xb[5] * cos[5])
+    alpha = op[:, None, :] * torch.exp(torch.clamp(power, max=0.0))
+    alpha = torch.where(power > 0.0, 0.0, alpha)
+    alpha = torch.clamp(alpha, max=ALPHA_MAX)
+    alpha = torch.where(alpha < ALPHA_MIN, 0.0, alpha)
+    l = torch.log1p(-alpha)
+    s_incl = torch.cumsum(l, dim=-1)
+    s_excl = s_incl - l
+    w = alpha * torch.exp(log_T[:, :, None] + s_excl)  # (b, pix, chunk)
+    acc = acc + torch.bmm(w, ft)
+    cw, arg = torch.max(w, dim=-1)
+    cid = torch.gather(sm, 1, arg)
+    better = cw > best_w
+    best_w = torch.where(better, cw, best_w)
+    best_id = torch.where(better, cid, best_id)
+    log_T = log_T + s_incl[..., -1]
+    return log_T, acc, best_w, best_id
+
+
+def _run_chunk(step, *args):
+    """``step(*args)``; under grad through a non-reentrant checkpoint, so
+    the backward recomputes the step instead of saving its matrices."""
+    if torch.is_grad_enabled():
+        return checkpoint(step, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return step(*args)
+
+
 def composite_tiles(
     proj: ProjectedGaussians,
     semantic_ids: torch.Tensor,
@@ -128,24 +170,9 @@ def composite_tiles(
                 ft = torch.cat([proj.colors[g], proj.depths[g][..., None],
                                 torch.ones_like(op)[..., None]], dim=-1)
                 sm = torch.where(valid, semantic_ids[g], -1)
-                cos = [co[:, None, :, i] for i in range(6)]         # (b, 1, chunk)
-                power = (cos[0] + Xb[1] * cos[1] + Xb[2] * cos[2]
-                         + Xb[3] * cos[3] + Xb[4] * cos[4] + Xb[5] * cos[5])
-                alpha = op[:, None, :] * torch.exp(torch.clamp(power, max=0.0))
-                alpha = torch.where(power > 0.0, 0.0, alpha)
-                alpha = torch.clamp(alpha, max=ALPHA_MAX)
-                alpha = torch.where(alpha < ALPHA_MIN, 0.0, alpha)
-                l = torch.log1p(-alpha)
-                s_incl = torch.cumsum(l, dim=-1)
-                s_excl = s_incl - l
-                w = alpha * torch.exp(log_T[:, :, None] + s_excl)  # (b, pix, chunk)
-                acc = acc + torch.bmm(w, ft)
-                cw, arg = torch.max(w, dim=-1)
-                cid = torch.gather(sm, 1, arg)
-                better = cw > best_w
-                best_w = torch.where(better, cw, best_w)
-                best_id = torch.where(better, cid, best_id)
-                log_T = log_T + s_incl[..., -1]
+                log_T, acc, best_w, best_id = _run_chunk(
+                    _chunk_step, log_T, acc, best_w, best_id, co, op, ft, sm,
+                    Xb)
             accs.append(acc)
             transs.append(torch.exp(log_T))
             sems.append(best_id)

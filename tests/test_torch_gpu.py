@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from sage3d_tpu_torch.benchmarks import kernel_anatomy
 from sage3d_tpu_torch.ops import binning, composite_cuda, segreduce
 from sage3d_tpu_torch.ops.projection import project_gaussians
 from sage3d_tpu_torch.renderer import render as trender
@@ -150,6 +151,36 @@ def test_segment_reduce_kernel_matches_plain():
     assert segreduce.segment_reduce_sorted.launches == before + 2
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     assert torch.equal(got, again)        # deterministic: no atomics
+
+
+@pytest.mark.parametrize("name", list(kernel_anatomy.VARIANTS))
+def test_anatomy_probe_matches_plain(name):
+    _need_card("the K2 anatomy probe")
+    scene, cam, bk = _frame()
+    inputs = kernel_anatomy.prepare(scene, cam, bk)
+    args = tuple(inputs[k] for k in
+                 ("attrs", "pair_gauss", "tile_start", "tile_count"))
+    flags = kernel_anatomy.VARIANTS[name]
+    want = kernel_anatomy.variant_plain(*args, inputs["tiles_x"], **flags)
+    call = kernel_anatomy.make_variant(inputs["n_tiles"], inputs["tiles_x"],
+                                       **flags)
+    before = kernel_anatomy.composite_anatomy.launches
+    got = call(*args)
+    torch.cuda.synchronize()
+    assert kernel_anatomy.composite_anatomy.launches == before + 1
+    for ch in (0, 1, 2, 4, 5, 6):
+        torch.testing.assert_close(got[:, ch], want[:, ch], rtol=1e-4,
+                                   atol=1e-4)
+    torch.testing.assert_close(got[:, 3], want[:, 3], rtol=1e-3, atol=1e-3)
+    assert (got[:, 7] == want[:, 7]).float().mean() >= 0.995
+    if name == kernel_anatomy.PRODUCTION:      # K2 line for line
+        k2, _ = composite_cuda.composite_fwd(*args, inputs["tiles_x"])
+        assert torch.equal(got, k2)
+        copies = [x[None].expand(2, *x.shape).contiguous() for x in args]
+        two = kernel_anatomy.make_variant(
+            inputs["n_tiles"], inputs["tiles_x"], batch=2, **flags)(*copies)
+        assert torch.equal(two[0], k2) and torch.equal(two[1], k2)
+    assert kernel_anatomy.variant_registers(**flags) > 0
 
 
 def test_cuda_backend_gradients_match_torch_backend():
