@@ -191,14 +191,12 @@ def composite_anatomy(attrs: torch.Tensor, pair_gauss: torch.Tensor,
         raise ValueError("composite_anatomy: sizes must fit int32")
     out = torch.empty((b, n_tiles, cc.NCH, cc.NPIX), dtype=torch.float32,
                       device=attrs.device)
-    lib = _build.load("composite_anatomy")
-    with torch.cuda.device(attrs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sage3d_composite_anatomy(
-            attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
-            tile_count.data_ptr(), out.data_ptr(), n_tiles, tiles_x,
-            attrs.shape[-2], pair_gauss.shape[-1], b, *(int(f) for f in key),
-            stream)
+    err = _build.launch(
+        _build.load("composite_anatomy").sage3d_composite_anatomy,
+        attrs.device, attrs.data_ptr(), pair_gauss.data_ptr(),
+        tile_start.data_ptr(), tile_count.data_ptr(), out.data_ptr(), n_tiles,
+        tiles_x, attrs.shape[-2], pair_gauss.shape[-1], b,
+        *(int(f) for f in key))
     _build.check(err, "composite_anatomy")
     composite_anatomy.launches += 1
     return out if batched else out[0]

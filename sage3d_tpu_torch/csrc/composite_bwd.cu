@@ -6,8 +6,8 @@
 // (the forward's k_end, clipped to the gradient buffer). Per pixel and pair it
 // replays the forward (alpha, w = alpha * T, T *= 1 - alpha) and forms
 //   c      = sum_ch g_ch * feat_ch + g_alpha
-//   dalpha = c * T_before - (S_pix - prefix_incl(c * w)) / (1 - alpha)
-//            - g_T * T_final / (1 - alpha),  S_pix = sum_ch g_ch * fwd_acc_ch,
+//   dalpha = c * T_before - (S_pix + g_T * T_final - prefix_incl(c * w))
+//            / (1 - alpha),                  S_pix = sum_ch g_ch * fwd_acc_ch,
 // zeroed where alpha == 0 or raw > 0.99. The suffix sums a back-to-front
 // sweep would carry come from S_pix minus the running prefix, so the sweep
 // runs in the forward's order. Per pair it sums ten channels over the tile's
@@ -20,29 +20,43 @@
 // chunks keep: the sort puts them last and the segment sum skips them.
 //
 // The stop must be the forward's: the transmittance is replayed with K2's
-// operations in K2's order (the same tile-local power expression, then
-// w = alpha * T; T *= 1 - alpha, sequentially over the pairs), built with
-// -fmad=false and IEEE expf, so w and T equal K2's bit for bit and a
-// grad_capacity equal to the measured sum of k_end gives the same gradients
-// as the safe bound. The TPU kernel's roll-doubling prefix products, HALF
-// sub-blocks, rolled two-block windows and DMA pipelines are not carried over.
+// operations in K2's order (the same tile-local coefficients and power
+// expression, then w = alpha * T; T *= 1 - alpha, sequentially over the
+// pairs). This file is built, as K2 is, with -fmad=false and IEEE expf, so w
+// and T equal K2's bit for bit and a grad_capacity equal to the measured sum
+// of k_end gives the same gradients as the safe bound. The gradient side is
+// written with __fmaf_rn, so it gets fused multiply-adds all the same.
 //
 // What bounds it on an H100: operations. Each pair-pixel evaluation is the
-// forward's ~21 f32 operations plus ~53 for the gradient, and each pair's
-// 64-byte attribute row is read once per tile. Where alpha is 0 (a pixel
-// outside the pair's footprint) the gradient adds nothing and is skipped, and
-// a warp none of whose pixels the pair reaches skips the pair's cross-lane
-// sum; the forward replay runs for every pixel. Design: one block of 256
-// threads per tile, four pixels per thread (four rows of one column; a warp
-// holds a 32x4 strip), so a thread adds its four pixels before any
-// cross-thread sum.
-// Per chunk, 128 threads turn the chunk's attribute rows into tile-local
-// coefficients in shared memory, as K2 does. For every pair the warp sums its
-// ten channels with a reduce-scatter butterfly (16 shuffles for 16 slots
-// rather than 5 per value), lane 2v holding channel v of the warp's sum; the
-// eight warp partials of 32 pairs wait in shared memory and are then added in
-// warp order by one thread per (pair, channel). The sums are deterministic:
-// no float atomics.
+// forward's alpha (~18 f32 operations and an expf), and each evaluation with
+// alpha > 0 (a hit) the gradient (~32); at the 1080p frame of the 1M room
+// 91% of the evaluations are hits. Design:
+//   - 128 threads per tile, 8 pixels per thread: one column and 8 rows, and a
+//     warp holds a 16x16 square, so a pair whose footprint misses the square
+//     skips the warp's cross-lane sum (__any_sync). The pixels of a thread
+//     share x, so (w0 + wx * px), ha * pxx and dx are formed once per pair.
+//   - The per-pixel gradient is straight-line, computed for every pixel
+//     (where alpha is 0 it adds exact zeros and T is multiplied by 1), with
+//     a branch-free reciprocal of 1 - alpha, so the eight pixels' dependent
+//     chains interleave; a branch per pixel (or the IEEE division's
+//     slow-path branch) runs them one after another, and 16 warps an SM
+//     cannot hide that latency.
+//   - Per pixel only seven running sums: sum dpower, sum dpower * dy,
+//     sum dpower * dy^2 and sum g_ch * w; the per-pair channels are linear in
+//     them (dx is the thread's), e.g. d_cov_x = -0.5 * dx^2 * sum dpower.
+//     The ten warp sums come from one 16-slot reduce-scatter of shuffles,
+//     spent once per 8 pixels.
+//   - 128 registers (__launch_bounds__(128, 4), a 36-byte spill) and 56 KB
+//     of shared memory a block let 4 blocks share an SM.
+//   - Double-buffered chunks: while chunk k is swept, each thread's loads of
+//     chunk k+1's attribute row (three float4) and chunk k+2's pair id are in
+//     flight; the rows become chunk k+1's coefficients in the other buffer.
+//     The four warp partials of every pair wait in a double-buffered shared
+//     array and are added, in warp order, by one thread per pair while the
+//     next chunk is swept. One barrier per chunk (__syncthreads_or, which is
+//     also the early-stop vote). No float atomics: bitwise repeatable.
+// The TPU kernel's roll-doubling prefix products, HALF sub-blocks, rolled
+// two-block windows and DMA pipelines are not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,23 +65,72 @@ namespace {
 
 constexpr int kTile = 32;
 constexpr int kNpix = kTile * kTile;
-constexpr int kThreads = 256;
-constexpr int kPix = kNpix / kThreads;  // pixels per thread: 4
+constexpr int kThreads = 128;
+constexpr int kPix = kNpix / kThreads;  // pixels per thread: 8
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 128;  // pairs per chunk
-constexpr int kSub = 32;     // pairs per round of the cross-warp sum
 constexpr int kNfeat = 16;   // floats per attribute / slot row
 constexpr int kNch = 8;      // channels of the forward images
 constexpr int kNgrad = 10;   // gradient channels per pair
 constexpr int kGidCol = 11;  // slot column carrying the Gaussian id
+static_assert(kGidCol == 2 * 4 + 3, "the id is the last float of the row's "
+              "third float4 (flush)");
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTransEps = 1e-4f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;  // devices whose launch attributes are set
 
-struct Coef {
-  float w0, wx, wy, ha, hc, b, op, r, g, bl, depth, a, c, mx, my, gid;
+struct __align__(16) Coef {
+  float w0, wx, wy, ha, hc, b, op, r, g, bl, depth, mx, my, a, c, gid;
 };
+
+constexpr size_t kSmemBytes =
+    2 * kChunk * sizeof(Coef) + 2 * kWarps * kChunk * kNgrad * sizeof(float);
+
+// One pair's coefficients from its attribute row (columns 0-11), in K2's
+// operations and order.
+__device__ __forceinline__ Coef make_coef(const float4 (&q)[3], float ox,
+                                          float oy) {
+  const float a = q[0].x, b = q[0].y, c = q[0].z;
+  const float cx = q[0].w - ox;
+  const float cy = q[1].x - oy;
+  Coef e;
+  e.w0 = -0.5f * (a * cx * cx + c * cy * cy) - b * cx * cy;
+  e.wx = a * cx + b * cy;
+  e.wy = c * cy + b * cx;
+  e.ha = 0.5f * a;
+  e.hc = 0.5f * c;
+  e.b = b;
+  e.op = q[1].y;
+  e.r = q[1].z;
+  e.g = q[1].w;
+  e.bl = q[2].x;
+  e.depth = q[2].y;
+  e.mx = cx;
+  e.my = cy;
+  e.a = a;
+  e.c = c;
+  e.gid = q[2].w;
+  return e;
+}
+
+__device__ __forceinline__ void load_row(const float* __restrict__ attrs,
+                                         int gid, float4 (&q)[3]) {
+  const float4* row = reinterpret_cast<const float4*>(attrs + (size_t)gid * kNfeat);
+  q[0] = row[0];
+  q[1] = row[1];
+  q[2] = row[2];
+}
+
+// 1 / x for x in [0.01, 1] (x = 1 - alpha): the hardware's approximate
+// reciprocal refined by one Newton step, within an ulp of the IEEE quotient
+// and, unlike it, with no slow-path branch to split the pixel loop.
+__device__ __forceinline__ float reciprocal(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return __fmaf_rn(__fmaf_rn(-x, r, 1.0f), r, r);
+}
 
 // One level of the reduce-scatter: lanes with `up` keep the upper n values
 // and send the lower n to their partner lane ^ off, the others the reverse.
@@ -81,7 +144,7 @@ __device__ __forceinline__ void halve(float (&v)[16], int off, bool up) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 composite_bwd_kernel(const float* __restrict__ attrs,
                      const int32_t* __restrict__ pair_gauss,
                      const int32_t* __restrict__ tile_start,
@@ -92,8 +155,9 @@ composite_bwd_kernel(const float* __restrict__ attrs,
                      const float* __restrict__ gout,
                      float* __restrict__ slots, int tiles_x, int n_gauss,
                      int n_pairs, int c_cap) {
-  __shared__ Coef coef[kChunk];
-  __shared__ float part[kWarps][kSub][kNgrad];
+  extern __shared__ float4 smem[];
+  Coef* coef = reinterpret_cast<Coef*>(smem);                     // [2][kChunk]
+  float* part = reinterpret_cast<float*>(coef + 2 * kChunk);  // [2][kWarps][kChunk][kNgrad]
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -105,17 +169,19 @@ composite_bwd_kernel(const float* __restrict__ attrs,
   const int n_chunks = allowed[t];
   const int64_t slot0 = chunk0[t];
 
-  // Pixel j of this thread: column lane, row 4 * warp + j, so a warp covers
-  // a 32x4 strip and a small footprint reaches few warps. Coordinates as K2
+  // Pixels of this thread: column col, rows row0 .. row0 + 7. Warp w holds
+  // the 16x16 square at (16 * (w & 1), 16 * (w >> 1)). Coordinates as K2
   // computes them.
-  const float px = (float)lane + 0.5f;
+  const int col = 16 * (warp & 1) + (lane & 15);
+  const int row0 = 16 * (warp >> 1) + 8 * (lane >> 4);
+  const float px = (float)col + 0.5f;
   const float pxx = px * px;
   float py[kPix], pyy[kPix], pxy[kPix];
-  float T[kPix], cw[kPix], spix[kPix], gtt[kPix];
+  float T[kPix], cw[kPix], q[kPix];
   float g0[kPix], g1[kPix], g2[kPix], g3[kPix], g4[kPix];
 #pragma unroll
   for (int j = 0; j < kPix; ++j) {
-    const int pix = (warp * kPix + j) * kTile + lane;
+    const int pix = (row0 + j) * kTile + col;
     py[j] = (float)(pix / kTile) + 0.5f;
     pyy[j] = py[j] * py[j];
     pxy[j] = px * py[j];
@@ -126,132 +192,155 @@ composite_bwd_kernel(const float* __restrict__ attrs,
     g2[j] = g[2 * kNpix];
     g3[j] = g[3 * kNpix];
     g4[j] = g[4 * kNpix];
-    spix[j] = g0[j] * f[0 * kNpix] + g1[j] * f[1 * kNpix] +
-              g2[j] * f[2 * kNpix] + g3[j] * f[3 * kNpix] +
-              g4[j] * f[4 * kNpix];
-    gtt[j] = g[5 * kNpix] * f[5 * kNpix];
+    // S_pix + g_T * T_final: what the suffix of c * w sums to from the front.
+    q[j] = (g0[j] * f[0 * kNpix] + g1[j] * f[1 * kNpix] +
+            g2[j] * f[2 * kNpix] + g3[j] * f[3 * kNpix] +
+            g4[j] * f[4 * kNpix]) + g[5 * kNpix] * f[5 * kNpix];
     T[j] = 1.0f;
     cw[j] = 0.0f;
   }
 
-  for (int k = 0; k < n_chunks; ++k) {
-    const int n_valid = min(count - k * kChunk, kChunk);
+  // Whether this thread has a pair in chunk kk, and that pair's Gaussian id
+  // (loaded here, checked where it is used, so the load can be in flight).
+  auto has_pair = [&](int kk) {
+    return kk < n_chunks && tid < count - kk * kChunk;
+  };
+  auto pair_id = [&](int kk) {
+    const int p = start + kk * kChunk + tid;
+    if (p < 0 || p >= n_pairs) __trap();
+    return pair_gauss[p];
+  };
+  auto check_id = [&](int gid) {
+    if (gid < 0 || gid >= n_gauss) __trap();
+  };
+
+  // Chunk 0's coefficients, and chunk 1's pair id in flight.
+  if (has_pair(0)) {
+    const int gid = pair_id(0);
+    check_id(gid);
+    float4 rq[3];
+    load_row(attrs, gid, rq);
+    coef[tid] = make_coef(rq, ox, oy);
+  }
+  bool has_next = has_pair(1);
+  int gid_next = has_next ? pair_id(1) : 0;
+  __syncthreads();
+
+  // The slot row of pair tid of chunk kk: the four warp partials added in
+  // warp order, the per-pair channels formed from them.
+  auto flush = [&](int kk) {
+    if (!(tid < count - kk * kChunk)) return;
+    const int buf = kk & 1;
+    const Coef& e = coef[buf * kChunk + tid];
+    float s[kNgrad];
+#pragma unroll
+    for (int v = 0; v < kNgrad; ++v) s[v] = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* pw = part + ((buf * kWarps + w) * kChunk + tid) * kNgrad;
+#pragma unroll
+      for (int v = 0; v < kNgrad; ++v) s[v] += pw[v];
+    }
+    // s: sum dx^2 dp, sum dx dp dy, sum dp dy^2, sum dx dp, sum dp dy,
+    // sum dp, sum g_ch w for ch = 0..3.
+    float4* o = reinterpret_cast<float4*>(
+        slots + ((slot0 + kk) * kChunk + tid) * kNfeat);
+    o[0] = make_float4(-0.5f * s[0], -s[1], -0.5f * s[2],
+                       e.a * s[3] + e.b * s[4]);
+    o[1] = make_float4(e.c * s[4] + e.b * s[3],
+                       s[5] / (e.op > 0.0f ? e.op : 1.0f), s[6], s[7]);
+    o[2] = make_float4(s[8], s[9], 0.0f, e.gid);
+    o[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  };
+
+  int k = 0;
+  while (k < n_chunks) {
     if (slot0 + k >= c_cap) __trap();
-    if (tid < n_valid) {
-      const int p = start + k * kChunk + tid;
-      if (p < 0 || p >= n_pairs) __trap();
-      const int gid = pair_gauss[p];
-      if (gid < 0 || gid >= n_gauss) __trap();
-      const float* row = attrs + (size_t)gid * kNfeat;
-      const float a = row[0], b = row[1], c = row[2];
-      const float cx = row[3] - ox;
-      const float cy = row[4] - oy;
-      Coef e;
-      e.w0 = -0.5f * (a * cx * cx + c * cy * cy) - b * cx * cy;
-      e.wx = a * cx + b * cy;
-      e.wy = c * cy + b * cx;
-      e.ha = 0.5f * a;
-      e.hc = 0.5f * c;
-      e.b = b;
-      e.op = row[5];
-      e.r = row[6];
-      e.g = row[7];
-      e.bl = row[8];
-      e.depth = row[9];
-      e.a = a;
-      e.c = c;
-      e.mx = cx;
-      e.my = cy;
-      e.gid = row[kGidCol];
-      coef[tid] = e;
+    const int buf = k & 1;
+    if (k > 0) flush(k - 1);
+    // Loads for the next chunks, consumed after this chunk's sweep.
+    float4 rq[3];
+    const bool load = has_next;
+    if (load) {
+      check_id(gid_next);
+      load_row(attrs, gid_next, rq);
     }
-    __syncthreads();
-    for (int s0 = 0; s0 < n_valid; s0 += kSub) {
-      const int ns = min(kSub, n_valid - s0);
-      for (int i = 0; i < ns; ++i) {
-        const Coef& e = coef[s0 + i];
-        float v[16];
+    has_next = has_pair(k + 2);
+    if (has_next) gid_next = pair_id(k + 2);
+
+    const Coef* cf = coef + buf * kChunk;
+    float* pw = part + (buf * kWarps + warp) * kChunk * kNgrad;
+    const int n_valid = min(count - k * kChunk, kChunk);
+    for (int i = 0; i < n_valid; ++i) {
+      const Coef& e = cf[i];
+      // The forward, in K2's operations and order: the terms every pixel
+      // of this column shares are formed once.
+      const float t1 = e.w0 + e.wx * px;
+      const float t3 = e.ha * pxx;
+      float S = 0.0f, Sy = 0.0f, Syy = 0.0f;
+      float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
+      bool hit = false;
 #pragma unroll
-        for (int q = 0; q < 16; ++q) v[q] = 0.0f;
-        bool hit = false;
-#pragma unroll
-        for (int j = 0; j < kPix; ++j) {
-          // The forward, in K2's operations and order.
-          const float power = e.w0 + e.wx * px + e.wy * py[j] - e.ha * pxx -
-                              e.hc * pyy[j] - e.b * pxy[j];
-          const float raw =
-              (power > 0.0f) ? 0.0f : e.op * expf(fminf(power, 0.0f));
-          float alpha = fminf(raw, kAlphaMax);
-          if (alpha < kAlphaMin) alpha = 0.0f;
-          const float om = 1.0f - alpha;
-          // The gradient. Where alpha is 0, w and dpower are 0: every term
-          // it would add is an exact zero and T stays, so it is skipped.
-          if (alpha > 0.0f) {
-            hit = true;
-            const float w = alpha * T[j];
-            const float cc = e.r * g0[j] + e.g * g1[j] + e.bl * g2[j] +
-                             e.depth * g3[j] + g4[j];
-            cw[j] += cc * w;
-            float dalpha = 0.0f;
-            if (raw <= kAlphaMax) {
-              const float inv = 1.0f / om;
-              dalpha = cc * T[j] - (spix[j] - cw[j]) * inv - gtt[j] * inv;
-            }
-            const float dpower = dalpha * alpha;
-            const float dx = px - e.mx;
-            const float dy = py[j] - e.my;
-            v[0] += dpower * (-0.5f * dx * dx);
-            v[1] += dpower * (-dx * dy);
-            v[2] += dpower * (-0.5f * dy * dy);
-            v[3] += dpower * (e.a * dx + e.b * dy);
-            v[4] += dpower * (e.c * dy + e.b * dx);
-            v[5] += dpower;
-            v[6] += g0[j] * w;
-            v[7] += g1[j] * w;
-            v[8] += g2[j] * w;
-            v[9] += g3[j] * w;
-            T[j] *= om;
-          }
-        }
-        if (__any_sync(kFull, hit)) {
-          halve<8>(v, 16, lane & 16);
-          halve<4>(v, 8, lane & 8);
-          halve<2>(v, 4, lane & 4);
-          halve<1>(v, 2, lane & 2);
-          // Lanes 2q and 2q+1 now hold halves of slot q's warp sum.
-          const float sum = v[0] + __shfl_xor_sync(kFull, v[0], 1);
-          if ((lane & 1) == 0 && (lane >> 1) < kNgrad)
-            part[warp][i][lane >> 1] = sum;
-        } else if (lane < kNgrad) {
-          part[warp][i][lane] = 0.0f;   // the pair misses this warp's pixels
-        }
+      for (int j = 0; j < kPix; ++j) {
+        const float power = t1 + e.wy * py[j] - t3 - e.hc * pyy[j] -
+                            e.b * pxy[j];
+        const float raw =
+            (power > 0.0f) ? 0.0f : e.op * expf(fminf(power, 0.0f));
+        float alpha = fminf(raw, kAlphaMax);
+        if (alpha < kAlphaMin) alpha = 0.0f;
+        // The gradient, straight-line: no branch per pixel, so the
+        // compiler can interleave the thread's eight pixels. Where alpha is
+        // 0, w and dpower are 0, every term added below is an exact zero
+        // and T is multiplied by 1.
+        hit |= alpha > 0.0f;
+        const float om = 1.0f - alpha;
+        const float w = alpha * T[j];
+        const float cc = __fmaf_rn(
+            e.r, g0[j],
+            __fmaf_rn(e.g, g1[j],
+                      __fmaf_rn(e.bl, g2[j], __fmaf_rn(e.depth, g3[j], g4[j]))));
+        cw[j] = __fmaf_rn(cc, w, cw[j]);
+        const float dalpha =
+            __fmaf_rn(cc, T[j], -((q[j] - cw[j]) * reciprocal(om)));
+        const float dp = raw <= kAlphaMax ? dalpha * alpha : 0.0f;
+        const float dy = py[j] - e.my;
+        const float dpy = dp * dy;
+        S += dp;
+        Sy += dpy;
+        Syy = __fmaf_rn(dpy, dy, Syy);
+        c0 = __fmaf_rn(g0[j], w, c0);
+        c1 = __fmaf_rn(g1[j], w, c1);
+        c2 = __fmaf_rn(g2[j], w, c2);
+        c3 = __fmaf_rn(g3[j], w, c3);
+        T[j] *= om;
       }
-      __syncthreads();
-      for (int o = tid; o < ns * kNfeat; o += kThreads) {
-        const int i = o / kNfeat;
-        const int col = o % kNfeat;
-        float val = 0.0f;
-        if (col < kNgrad) {
-#pragma unroll
-          for (int w = 0; w < kWarps; ++w) val += part[w][i][col];
-          if (col == 5) {
-            const float op = coef[s0 + i].op;
-            val = val / (op > 0.0f ? op : 1.0f);
-          }
-        } else if (col == kGidCol) {
-          val = coef[s0 + i].gid;
-        }
-        slots[((slot0 + k) * kChunk + s0 + i) * kNfeat + col] = val;
+      if (__any_sync(kFull, hit)) {
+        const float dx = px - e.mx;
+        const float dxs = dx * S;
+        float v[16] = {dx * dxs, dx * Sy, Syy, dxs, Sy, S, c0, c1, c2, c3,
+                       0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        halve<8>(v, 16, lane & 16);
+        halve<4>(v, 8, lane & 8);
+        halve<2>(v, 4, lane & 4);
+        halve<1>(v, 2, lane & 2);
+        // Lanes 2q and 2q+1 now hold halves of slot q's warp sum.
+        const float sum = v[0] + __shfl_xor_sync(kFull, v[0], 1);
+        if ((lane & 1) == 0 && (lane >> 1) < kNgrad)
+          pw[i * kNgrad + (lane >> 1)] = sum;
+      } else if (lane < kNgrad) {
+        pw[i * kNgrad + lane] = 0.0f;   // the pair misses this warp's pixels
       }
-      __syncthreads();  // `part` is reused by the next round
     }
+    if (load) coef[(buf ^ 1) * kChunk + tid] = make_coef(rq, ox, oy);
+    ++k;
     // Lanes past the chunk's last pair keep the caller's fill. The barrier
-    // below is also the one before the next chunk overwrites `coef`.
+    // publishes this chunk's partials and the next chunk's coefficients.
     bool live = false;
 #pragma unroll
     for (int j = 0; j < kPix; ++j) live |= T[j] > kTransEps;
     if (!__syncthreads_or(live)) break;
   }
+  if (k > 0) flush(k - 1);
 }
 
 }  // namespace
@@ -264,11 +353,38 @@ extern "C" int sage3d_composite_bwd(const void* attrs, const void* pair_gauss,
                                     int tiles_x, int n_gauss, int n_pairs,
                                     int c_cap, void* stream) {
   if (n_tiles > 0) {
-    composite_bwd_kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+    // Shared memory beyond 48 KB is opt-in; the largest carveout lets the
+    // most blocks share an SM. Set once per device, not on every launch.
+    static bool configured[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!configured[dev]) {
+      err = cudaFuncSetAttribute(
+          composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)kSmemBytes);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            composite_bwd_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+            100);
+      if (err != cudaSuccess) return (int)err;
+      configured[dev] = true;
+    }
+    composite_bwd_kernel<<<n_tiles, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
         (const float*)attrs, (const int32_t*)pair_gauss,
         (const int32_t*)tile_start, (const int32_t*)tile_count,
         (const int32_t*)chunk0, (const int32_t*)allowed, (const float*)fwd_out,
         (const float*)gout, (float*)slots, tiles_x, n_gauss, n_pairs, c_cap);
   }
   return (int)cudaGetLastError();
+}
+
+// Registers per thread of the kernel, from cudaFuncGetAttributes.
+extern "C" int sage3d_composite_bwd_regs(void* regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, (const void*)composite_bwd_kernel);
+  if (err == cudaSuccess) *(int*)regs = attr.numRegs;
+  return (int)err;
 }

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
@@ -26,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # emit cull margin, the power > 0 and alpha < 1/255 cutoffs), and K3 must
 # replay K2's transmittance bit for bit; contracting a multiply and an add
 # into one FMA would round differently from the plain PyTorch versions and
-# can move a tile across the cull margin.
+# can move a tile across the cull margin. Where a fused multiply-add is
+# wanted (K3's gradient arithmetic) the source writes __fmaf_rn.
 # No --use_fast_math: 1/x and expf stay IEEE.
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
@@ -48,6 +51,8 @@ KERNELS = {
         # gout, slots, n_tiles, tiles_x, n_gauss, n_pairs, c_cap, stream
         "sage3d_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _P],
+        # int* registers
+        "sage3d_composite_bwd_regs": [ctypes.POINTER(ctypes.c_int)],
     }),
     "composite_anatomy": ("composite_anatomy.cu", {
         # attrs, pair_gauss, tile_start, tile_count, out, n_tiles, tiles_x,
@@ -60,10 +65,9 @@ KERNELS = {
                                           ctypes.POINTER(ctypes.c_int)],
     }),
     "segreduce": ("segreduce.cu", {
-        # ids, perm (or NULL), rows, begin, end, out, n_rows, n_src_rows,
-        # row_stride, n_payload, n_out, stream
-        "sage3d_segment_reduce": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I,
-                                  _P],
+        # ids, perm (or NULL), rows, out, n_rows, n_src_rows, row_stride,
+        # n_payload, n_out, stream
+        "sage3d_segment_reduce": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _P],
     }),
 }
 
@@ -131,6 +135,17 @@ def load(name: str) -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     _LIBS[name] = lib
     return lib
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """Call the C entry point ``fn`` with ``args`` and then the current
+    stream of ``device`` (a CUDA device with its index). The device is made
+    current only where it is not already: entering ``torch.cuda.device``
+    costs host time on every launch. Returns ``fn``'s ``cudaError_t``."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def check(err: int, what: str) -> None:

@@ -165,12 +165,10 @@ def emit_tile_keys(attrs: torch.Tensor, rank: torch.Tensor, k_budget: int,
         raise ValueError(f"emit_tile_keys: k_budget {k_budget} or n {n} "
                          "outside int32")
     out = torch.empty((k_budget, n), dtype=torch.int32, device=attrs.device)
-    lib = _build.load("emit")
-    with torch.cuda.device(attrs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sage3d_emit_tile_keys(
-            attrs.data_ptr(), rank.data_ptr(), out.data_ptr(), n, k_budget,
-            tiles_x, n_tiles, mult, stream)
+    err = _build.launch(
+        _build.load("emit").sage3d_emit_tile_keys, attrs.device,
+        attrs.data_ptr(), rank.data_ptr(), out.data_ptr(), n, k_budget,
+        tiles_x, n_tiles, mult)
     _build.check(err, "emit_tile_keys")
     emit_tile_keys.launches += 1
     return out

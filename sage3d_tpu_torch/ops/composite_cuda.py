@@ -24,6 +24,7 @@ PyTorch versions; the wrappers take them only for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import torch
@@ -166,13 +167,11 @@ def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     out = torch.empty((n_tiles, NCH, NPIX), dtype=torch.float32,
                       device=attrs.device)
     kend = torch.empty((n_tiles,), dtype=torch.int32, device=attrs.device)
-    lib = _build.load("composite_fwd")
-    with torch.cuda.device(attrs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sage3d_composite_fwd(
-            attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
-            tile_count.data_ptr(), out.data_ptr(), kend.data_ptr(), n_tiles,
-            tiles_x, attrs.shape[0], pair_gauss.shape[0], stream)
+    err = _build.launch(
+        _build.load("composite_fwd").sage3d_composite_fwd, attrs.device,
+        attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
+        tile_count.data_ptr(), out.data_ptr(), kend.data_ptr(), n_tiles,
+        tiles_x, attrs.shape[0], pair_gauss.shape[0])
     _build.check(err, "composite_fwd")
     composite_fwd.launches += 1
     return out, kend
@@ -298,23 +297,33 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
         raise ValueError(f"composite_bwd: unsupported device {attrs.device}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("composite_bwd: inputs must be contiguous")
+    if attrs.data_ptr() % 16:
+        raise ValueError("composite_bwd: attrs must be 16-byte aligned (the "
+                         "kernel reads its rows as float4)")
     if max(attrs.shape[0], pair_gauss.shape[0], n_tiles, c_cap) >= 2**31:
         raise ValueError("composite_bwd: sizes must fit int32")
     slots = _slot_buffer(c_cap, attrs.shape[0], attrs.device)
-    lib = _build.load("composite_bwd")
-    with torch.cuda.device(attrs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sage3d_composite_bwd(
-            attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
-            tile_count.data_ptr(), chunk0.data_ptr(), allowed.data_ptr(),
-            fwd_out.data_ptr(), gout.data_ptr(), slots.data_ptr(), n_tiles,
-            tiles_x, attrs.shape[0], pair_gauss.shape[0], c_cap, stream)
+    err = _build.launch(
+        _build.load("composite_bwd").sage3d_composite_bwd, attrs.device,
+        attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
+        tile_count.data_ptr(), chunk0.data_ptr(), allowed.data_ptr(),
+        fwd_out.data_ptr(), gout.data_ptr(), slots.data_ptr(), n_tiles,
+        tiles_x, attrs.shape[0], pair_gauss.shape[0], c_cap)
     _build.check(err, "composite_bwd")
     composite_bwd.launches += 1
     return slots
 
 
 composite_bwd.launches = 0
+
+
+def composite_bwd_registers() -> int:
+    """Registers per thread of K3's kernel (cudaFuncGetAttributes); card
+    only."""
+    regs = ctypes.c_int(0)
+    _build.check(_build.load("composite_bwd").sage3d_composite_bwd_regs(
+        ctypes.byref(regs)), "composite_bwd_regs")
+    return regs.value
 
 
 def slot_ranges(kend: torch.Tensor, c_cap: int):
@@ -341,10 +350,13 @@ def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     bit of the result. Nothing waits for the device.
 
     ``grad_sort`` picks the sort's payload: ``"f32"`` (exact, the default)
-    reads the slot rows through the sort's permutation; ``"f16"`` scales each
-    channel to an absmax of 30000 before the cast and divides the (N, NGRAD)
-    sums by the scales; ``"bf16"`` casts as is. The sums are f32 in every
-    mode."""
+    as K3 wrote it; ``"f16"`` scales each channel to an absmax of 30000,
+    rounds to f16 and divides the (N, NGRAD) sums by the scales; ``"bf16"``
+    rounds to bf16 as is. The rounded values overwrite the slot rows'
+    payload, so K4 reads the rows through the sort's permutation in every
+    mode. The sums are f32 in every mode."""
+    if grad_sort not in GRAD_SORT_MODES:
+        raise ValueError(f"unknown grad_sort mode: {grad_sort}")
     chunk0, allowed = slot_ranges(kend, c_cap)
     slots = composite_bwd(attrs, pair_gauss, tile_start, tile_count, chunk0,
                           allowed, fwd_out, gout, c_cap, tiles_x)
@@ -352,18 +364,16 @@ def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                                   stable=True)
     n = attrs.shape[0]
     grads = slots[:, :NGRAD]
-    if grad_sort == "f32":
-        dg = segment_reduce_sorted(ids_sorted, grads, n, perm=perm)
-    elif grad_sort == "f16":
+    scales = None
+    if grad_sort == "f16":
         absmax = grads.abs().amax(0)
         scales = F16_SCALE / torch.clamp(absmax, min=1e-30)
-        payload = (grads * scales).to(torch.float16)[perm].to(torch.float32)
-        dg = segment_reduce_sorted(ids_sorted, payload, n) / scales
+        grads.copy_((grads * scales).to(torch.float16))
     elif grad_sort == "bf16":
-        payload = grads.to(torch.bfloat16)[perm].to(torch.float32)
-        dg = segment_reduce_sorted(ids_sorted, payload, n)
-    else:
-        raise ValueError(f"unknown grad_sort mode: {grad_sort}")
+        grads.copy_(grads.to(torch.bfloat16))
+    dg = segment_reduce_sorted(ids_sorted, grads, n, perm=perm)
+    if scales is not None:
+        dg = dg / scales
     return torch.cat([dg, torch.zeros((n, NFEAT - NGRAD), dtype=dg.dtype,
                                       device=dg.device)], 1)
 

@@ -149,8 +149,103 @@ def test_segment_reduce_kernel_matches_plain():
     again = segreduce.segment_reduce_sorted(ids, rows, n, perm=perm)
     torch.cuda.synchronize()
     assert segreduce.segment_reduce_sorted.launches == before + 2
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, want)         # the plain version adds in K4's order
     assert torch.equal(got, again)        # deterministic: no atomics
+
+
+def _segments(rng, n_out):
+    """Ascending ids with segments of 0, 1, L, L + 1, 33, 1000 and 5000 rows
+    among random short ones (so they start and end across warp and block
+    boundaries), and ids below 0 and at or above n_out at both ends."""
+    short = segreduce.SHORT
+    lengths = [0, 1, short, short + 1, 33, 1000, 5000, short, short + 1]
+    sizes = []
+    for n in lengths:
+        sizes += list(rng.integers(0, 4, size=int(rng.integers(5, 90))))
+        sizes.append(n)
+    sizes += list(rng.integers(0, 40, size=n_out - len(sizes) - 8))
+    ids = np.repeat(np.arange(len(sizes)) + 4, sizes)
+    ids = np.concatenate([[-7, -1, -1], ids, [n_out, n_out, n_out + 5]])
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("layout", ["perm_wide", "wide", "perm_packed",
+                                    "packed"])
+def test_segment_reduce_kernel_is_bitwise_plain_on_constructed_segments(layout):
+    _need_card("K4")
+    rng = np.random.default_rng(17)
+    n_out = 1200
+    ids = _segments(rng, n_out)
+    p = len(ids)
+    rows = (rng.normal(size=(p, 10)) * 10.0 ** rng.integers(
+        -3, 4, size=(p, 1))).astype(np.float32)
+    rows[::7] *= np.float32(1e-40)   # subnormal sums are kept, not flushed
+    perm = None
+    if layout.startswith("perm"):
+        perm = rng.permutation(p)
+        src = np.empty_like(rows)
+        src[perm] = rows
+    else:
+        src = rows
+    if layout.endswith("wide"):      # a column slice of 16-wide rows: float4
+        wide = np.zeros((p, 16), np.float32)
+        wide[:, :10] = src
+        payload = torch.from_numpy(wide).cuda()[:, :10]
+    else:                            # stride 10: scalar loads
+        payload = torch.from_numpy(src).cuda()
+    ids_t = torch.from_numpy(ids).cuda()
+    perm_t = None if perm is None else torch.from_numpy(perm).cuda()
+    got = segreduce.segment_reduce_sorted(ids_t, payload, n_out, perm=perm_t)
+    again = segreduce.segment_reduce_sorted(ids_t, payload, n_out, perm=perm_t)
+    on_card = segreduce.segment_reduce_plain(ids_t, payload, n_out, perm=perm_t)
+    on_cpu = segreduce.segment_reduce_plain(
+        torch.from_numpy(ids), torch.from_numpy(rows), n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, on_card)
+    assert torch.equal(got.cpu(), on_cpu)
+    absent = np.setdiff1d(np.arange(n_out), ids)
+    assert float(got[torch.from_numpy(absent).cuda()].abs().max()) == 0.0
+
+
+def test_tight_grad_capacity_is_bitwise_on_the_card():
+    _need_card("K3 and K4")
+    args, kend = _k3_inputs()
+    attrs, pg, start, count, _, _, out, gout, _, tiles_x = args
+    n_tiles = start.shape[0]
+    safe = pg.shape[0] // composite_cuda.CHUNK + n_tiles
+    tight = int(kend.sum())
+    assert tight < safe
+    grads = [composite_cuda.composite_vjp(attrs, pg, start, count, kend, out,
+                                          gout, tiles_x, c_cap)
+             for c_cap in (tight, safe)]
+    torch.cuda.synchronize()
+    assert float(grads[0].abs().max()) > 0
+    assert torch.equal(grads[0], grads[1])
+    assert composite_cuda.composite_bwd_registers() > 0
+
+
+@pytest.mark.parametrize("mode", ["f16", "bf16"])
+def test_rounded_grad_sorts_on_the_card(mode):
+    """The f16 and bf16 sorts round the slot rows in place and read them
+    through the sort's index: the same d_attrs as the plain versions on the
+    CPU, and a tight grad_capacity bitwise equal to the safe bound."""
+    _need_card("K3 and K4")
+    args, kend = _k3_inputs()
+    attrs, pg, start, count, _, _, out, gout, _, tiles_x = args
+    safe = pg.shape[0] // composite_cuda.CHUNK + start.shape[0]
+    grads = [composite_cuda.composite_vjp(attrs, pg, start, count, kend, out,
+                                          gout, tiles_x, c_cap, mode)
+             for c_cap in (int(kend.sum()), safe)]
+    cpu = composite_cuda.composite_vjp(
+        *(x.cpu() for x in (attrs, pg, start, count, kend, out, gout)),
+        tiles_x, safe, mode)
+    torch.cuda.synchronize()
+    assert float(grads[0].abs().max()) > 0
+    assert torch.equal(grads[0], grads[1])
+    tol = {"f16": 2e-3, "bf16": 2e-2}[mode]   # the CPU tests' mode tolerances
+    torch.testing.assert_close(grads[1].cpu(), cpu, rtol=0,
+                               atol=tol * float(cpu.abs().max()))
 
 
 @pytest.mark.parametrize("name", list(kernel_anatomy.VARIANTS))

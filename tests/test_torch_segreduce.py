@@ -13,6 +13,29 @@ from sage3d_tpu.ops import segreduce as jseg
 from sage3d_tpu_torch.ops import segreduce as tseg
 
 SEG_G, SEG_R = jseg.SEG_G, jseg.SEG_R
+L = tseg.SHORT
+
+
+def _kernel_order(rows):
+    """One segment's sum in K4's order, in float32: serially from zero for
+    at most L rows; else lane r % 32 sums rows r, r + 32, ... from zero and
+    the 32 lanes are added by halving."""
+    zero = np.zeros(rows.shape[1], np.float32)
+    if len(rows) <= L:
+        acc = zero
+        for x in rows:
+            acc = acc + x
+        return acc
+    lanes = []
+    for lane in range(tseg.LANES):
+        acc = zero
+        for x in rows[lane::tseg.LANES]:
+            acc = acc + x
+        lanes.append(acc)
+    while len(lanes) > 1:
+        half = len(lanes) // 2
+        lanes = [lanes[i] + lanes[i + half] for i in range(half)]
+    return lanes[0]
 
 
 def _both(gids, payload, n_out):
@@ -147,3 +170,50 @@ def test_wrapper_checks_inputs():
     out = tseg.segment_reduce_sorted(ids, torch.ones((4, 2)), 3)
     assert tseg.segment_reduce_sorted.launches == before   # the plain version
     assert out.tolist() == [[4.0, 4.0], [0.0, 0.0], [0.0, 0.0]]
+
+
+@pytest.mark.parametrize("length", [1, 2, L - 1, L, L + 1, 2 * L + 1, 100, 1000])
+def test_plain_order_is_the_kernels(length):
+    # segments of `length` rows between neighbours of 1 and L + 1 rows: the
+    # sums equal K4's order of additions bit for bit, and agree with JAX
+    rng = np.random.default_rng(length)
+    sizes = [1, length, L + 1, length, 3]
+    gids = np.repeat(np.arange(0, 2 * len(sizes), 2), sizes).astype(np.int32)
+    rows = (rng.normal(size=(len(gids), 5)) * 10.0 ** rng.integers(
+        -3, 4, size=(len(gids), 1))).astype(np.float32)
+    got = tseg.segment_reduce_sorted(torch.from_numpy(gids),
+                                     torch.from_numpy(rows), 2 * len(sizes))
+    want = np.zeros((2 * len(sizes), 5), np.float32)
+    for g in np.unique(gids):
+        want[g] = _kernel_order(rows[gids == g])
+    assert got.numpy().tobytes() == want.tobytes()
+    _, jax_out = _both(gids, list(rows.T), 2 * len(sizes))
+    np.testing.assert_allclose(got.numpy(), jax_out, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("length", [L, L + 1])
+@pytest.mark.parametrize("shift", [1, 31, 32, 255])
+def test_sums_at_the_short_limit_do_not_depend_on_where_they_start(length,
+                                                                    shift):
+    rng = np.random.default_rng(length * 1000 + shift)
+    rows = rng.normal(size=(length, 4)).astype(np.float32)
+    base = tseg.segment_reduce_sorted(
+        torch.full((length,), 3, dtype=torch.int32), torch.from_numpy(rows), 5)
+    ids = np.concatenate([np.full(shift, 1), np.full(length, 3)]).astype(np.int32)
+    pad = np.concatenate([rng.normal(size=(shift, 4)).astype(np.float32), rows])
+    moved = tseg.segment_reduce_sorted(torch.from_numpy(ids),
+                                       torch.from_numpy(pad), 5)
+    assert torch.equal(moved[3], base[3])
+    assert moved[3].numpy().tobytes() == _kernel_order(rows).tobytes()
+
+
+def test_subnormal_sums_are_kept():
+    # the kernel's adds keep subnormals; so does the plain version, which
+    # adds without float atomics (those flush them to zero on the card)
+    ids = np.repeat(np.arange(4), [1, 3, L + 1, 4]).astype(np.int32)
+    rows = np.full((len(ids), 2), 1e-40, np.float32)
+    got = tseg.segment_reduce_sorted(torch.from_numpy(ids),
+                                     torch.from_numpy(rows), 4)
+    want = np.stack([_kernel_order(rows[ids == g]) for g in range(4)])
+    assert got.numpy().tobytes() == want.tobytes()
+    assert (np.abs(got.numpy()) > 0).all()
