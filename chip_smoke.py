@@ -10,11 +10,13 @@ no result line):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from ``sage3d_tpu_torch/csrc`` with nvcc,
      one process per source, all at once;
-  3. K1 (``csrc/emit.cu``) against its plain PyTorch version on the emission
-     tables of the 1080p frame of a 1M-Gaussian scene, fused key (mult > 0)
-     and two-key (mult == 0) modes: the keys must be equal;
+  3. K1 (``csrc/emit.cu``) against its plain PyTorch version on the live
+     slots of the 1080p frame of a 1M-Gaussian scene, fused key (mult > 0)
+     and two-key (mult == 0) modes: the pairs, sorted by key, must be equal;
   4. K2 (``csrc/composite_fwd.cu``) against its plain version on the same
-     binned frame, with the tolerances stated below; then, on the same frame
+     binned frame, with the tolerances stated below, and bitwise against the
+     anatomy probe's production variant (K2 line for line); then, on the same
+     frame
      and K2's k_end with a seeded cotangent, K3 (``csrc/composite_bwd.cu``)
      against its plain version, and K4 (``csrc/segreduce.cu``) bitwise
      against its plain version on K3's id-sorted gradient rows, launched
@@ -25,7 +27,9 @@ no result line):
      and 3840x2160 of the 1M-Gaussian room, and the 640x480 agent view of a
      200k room; ``smoke_frames``) with
      ``autotune_all(pair_margin=1.05)`` budgets, each with its launch
-     counters set to 0 just before and read just after; overflow must be 0.
+     counters set to 0 just before and read just after; overflow must be 0
+     and K1 must launch once a frame. Frame b's own peak device memory is
+     read around its render (``reset_peak_memory_stats``).
      The 1080p frame is also rendered by the ``torch`` backend, and a small
      frame is held against the exact per-pixel oracle. Gradients of all five
      trainable groups through ``render(backend="cuda")`` are held against the
@@ -107,7 +111,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # FP32 operations per unit of work, counted from the kernels' source:
 # K1, one live slot: the reciprocal walk with its fixup, the tile rect, four
-# edge minima of the conic quadratic, the cull test and the key (~90).
+# edge minima of the conic quadratic, the cull test and the key (~90; the
+# search for the slot's Gaussian is not counted).
 # K2 and K3 need the rest of their work only where alpha > 0 (a hit): where
 # alpha is 0, w and every gradient term are exact zeros and T stays.
 # K2, every pair-pixel evaluation: the quadratic (10), the exp (counted as
@@ -326,21 +331,39 @@ def main() -> int:
                                        **emit_kw)
 
     # 3. K1 against its plain version -----------------------------------------
+    # The kernel writes the kept pairs in no particular order and the plain
+    # version in slot order; keys are unique, so both are compared sorted.
+    def sorted_pairs(keys, gauss, n_kept):
+        n = int(n_kept)
+        keys, perm = torch.sort(keys[:n])
+        return keys, gauss[:n][perm]
+
     n_tiles_a = plan.tiles_x * plan.tiles_y
+    k1_args = (plan.table, plan.offsets, plan.n_live, plan.tiles_x)
     k1_equal = True
     for mult in (plan.mult, 0):
-        for i, t in enumerate(plan.tiers):
-            got = binning.emit_tile_keys(t.attrs, t.rank, t.k_budget,
-                                         plan.tiles_x, n_tiles_a, mult)
-            want = binning.emit_tile_keys_plain(t.attrs, t.rank, t.k_budget,
-                                                plan.tiles_x, n_tiles_a, mult)
-            torch.cuda.synchronize()
-            n_diff = int((got != want).sum())
-            k1_equal &= n_diff == 0
-            print(f"K1 tier {i} (k={t.k_budget}, n={t.attrs.shape[1]}, "
-                  f"mult={mult}): {n_diff} keys differ", flush=True)
+        got = sorted_pairs(*binning.emit_tile_pairs(*k1_args, mult))
+        want = sorted_pairs(*binning.emit_tile_pairs_plain(*k1_args, mult))
+        torch.cuda.synchronize()
+        equal = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        k1_equal &= equal
+        print(f"K1 at frame a (mult={mult}): {plan.n_live} live slots, "
+              f"{len(got[0])} kept pairs (plain {len(want[0])}); sorted pairs "
+              f"equal: {equal}", flush=True)
+        del got, want
+
+    def padded_slots(tier):   # the JAX kernel's padded emission: n_pad columns
+        m = tier.gauss.shape[0]
+        gb = min(binning.EMIT_GB, max(128, m))
+        return -(-m // gb) * gb, tier.k_budget
+
+    budgeted = sum(n * k for n, k in map(padded_slots, plan.tiers))
+    print(f"K1 at frame a: {len(plan.tiers)} tiers, {budgeted} budgeted slots "
+          f"(the padded emission's), {plan.n_live} live, "
+          f"{int(bins_a.n_pairs)} kept", flush=True)
     check(plan.mult > 0, "frame a takes the fused-key path")
-    check(k1_equal, "K1 keys equal the plain version's (fused and two-key)")
+    check(k1_equal, "K1's pairs sorted by key equal the plain version's "
+          "(fused and two-key)")
 
     # 4. K2 against its plain version -----------------------------------------
     attrs_a = composite_cuda.attribute_table(proj_a, scene_a.semantic_ids)
@@ -367,6 +390,15 @@ def main() -> int:
     check(sem_agree >= SEM_MIN, f"K2 semantic agreement >= {SEM_MIN}")
     check(kend_diff <= KEND_MAX_DIFF * n_tiles_a,
           f"K2 k_end differs on <= {KEND_MAX_DIFF:.1%} of tiles")
+    probe_a = kernel_anatomy.make_variant(
+        n_tiles_a, plan.tiles_x,
+        **kernel_anatomy.VARIANTS[kernel_anatomy.PRODUCTION])(*k2_args[:4])
+    torch.cuda.synchronize()
+    print(f"K2 vs the probe's production variant at frame a: "
+          f"{int((probe_a != out_k).sum())} values differ", flush=True)
+    check(torch.equal(probe_a, out_k),
+          "probe, early stop on, all blocks: bitwise equal to K2 at frame a")
+    del probe_a, out_p
 
     # 4b. K3 against its plain version ----------------------------------------
     c_cap_a = int(budgets_train["grad_capacity"])
@@ -440,14 +472,25 @@ def main() -> int:
     # 5. the main path ----------------------------------------------------------
     launches = {"emit": 0, "composite_fwd": 0}
     outs = {}
+    script_peak = 0
     for key, (scene, cam) in frames.items():
         bk = budget_kwargs(budgets[key])
-        binning.emit_tile_keys.launches = 0
+        if key == "b_4k_1M":   # the frame's own peak, beside the script's
+            torch.cuda.synchronize()
+            script_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        binning.emit_tile_pairs.launches = 0
         composite_cuda.composite_fwd.launches = 0
         with torch.no_grad():
             out = render(scene, cam, backend="cuda", **bk)
         torch.cuda.synchronize()
-        n_emit = binning.emit_tile_keys.launches
+        if key == "b_4k_1M":
+            peak_b = torch.cuda.max_memory_allocated()
+            print(f"frame {key} peak device memory {card}: "
+                  f"{peak_b / 2**30:.2f} GiB, of which {held / 2**30:.2f} GiB "
+                  f"held before its render()", flush=True)
+        n_emit = binning.emit_tile_pairs.launches
         n_comp = composite_cuda.composite_fwd.launches
         launches["emit"] += n_emit
         launches["composite_fwd"] += n_comp
@@ -463,8 +506,8 @@ def main() -> int:
         check(int(out["overflow"]) == 0, f"frame {key}: overflow == 0")
         check(finite and shape_ok, f"frame {key}: finite outputs of shape "
               f"({cam.height}, {cam.width})")
-        check(n_emit > 0 and n_comp > 0,
-              f"frame {key}: the main path launched K1 and K2")
+        check(n_emit == 1 and n_comp > 0,
+              f"frame {key}: the main path launched K1 once and K2")
 
     with torch.no_grad():
         ref = render(scene_a, cam_a, backend="torch", **bk_a)
@@ -544,7 +587,7 @@ def main() -> int:
     step_fn, _ = train.make_train_step(start_scene, cam_a, optimizer=opt,
                                        backend="cuda", **bk_t)
     state = train.init_train_state(start_scene, opt)
-    counters = {"emit": binning.emit_tile_keys,
+    counters = {"emit": binning.emit_tile_pairs,
                 "composite_fwd": cc.composite_fwd,
                 "composite_bwd": cc.composite_bwd,
                 "segreduce": segreduce.segment_reduce_sorted}
@@ -733,6 +776,8 @@ def main() -> int:
         with torch.no_grad():
             proj = project_gaussians(scene, cam)
             bins = binning.bin_gaussians(proj, cam.width, cam.height, **ekw)
+            n_live = binning.emission_plan(proj, cam.width, cam.height,
+                                           **ekw).n_live
             dev_ms = {
                 "projection": device_busy(
                     lambda: project_gaussians(scene, cam))[0],
@@ -752,7 +797,8 @@ def main() -> int:
               f"copies per frame; stage device ms: projection "
               f"{dev_ms['projection']:.3f}, binning {dev_ms['binning']:.3f}, "
               f"composite {dev_ms['composite']:.3f} (torch.profiler, CUDA "
-              f"activity only, {PROFILE_REPS} unsynchronized frames)",
+              f"activity only, {PROFILE_REPS} unsynchronized frames); K1 "
+              f"walks {n_live} live slots for {int(bins.n_pairs)} kept pairs",
               flush=True)
         for kname, kms, kn in top:
             print(f"  top kernel {key}: {kms:.3f} ms, {kn:g} launches: "
@@ -760,30 +806,30 @@ def main() -> int:
 
     # Kernel against plain version at frame a, with the bound of the work.
     def k1_run():
-        for t in plan.tiers:
-            binning.emit_tile_keys(t.attrs, t.rank, t.k_budget, plan.tiles_x,
-                                   n_tiles_a, plan.mult)
-
-    def k1_plain():
-        for t in plan.tiers:
-            binning.emit_tile_keys_plain(t.attrs, t.rank, t.k_budget,
-                                         plan.tiles_x, n_tiles_a, plan.mult)
+        binning.emit_tile_pairs(*k1_args, plan.mult)
 
     k1_ms = cuda_ms(k1_run, reps=20, warmup=3)
-    k1_plain_ms = cuda_ms(k1_plain, reps=5, warmup=1)
-    # Bytes K1 must move: every key written once; the count row read for
-    # every column; the nine geometry rows (and the rank, in the fused-key
-    # mode) only for columns with a live slot.
-    k1_bytes = sum(
-        4 * t.attrs.shape[1] * (t.k_budget + 1)
-        + 4 * int((t.attrs[3] > 0).sum()) * (9 + (plan.mult > 0))
+    k1_plain_ms = cuda_ms(lambda: binning.emit_tile_pairs_plain(
+        *k1_args, plan.mult), reps=5, warmup=1)
+    # Bytes K1 must move: the offsets, read once; ten 4-byte values (the
+    # rect, mean, cut2, rank and conic) of each Gaussian with a live slot;
+    # each kept pair's key and Gaussian id written once. Operations:
+    # K1_OPS_PER_SLOT per live slot.
+    n_live_g = int((plan.offsets[1:] > plan.offsets[:-1]).sum())
+    kept_a = int(bins_a.n_pairs)
+    k1_bytes = (plan.offsets.numel() * 8 + n_live_g * 10 * 4
+                + kept_a * ((4 if plan.mult else 8) + 4))
+    k1_ops = plan.n_live * K1_OPS_PER_SLOT
+    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S) * 1e3
+    k1_by = ("bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / FP32_OPS_PER_S
+             else "operations")
+    # The count for the JAX kernel's padded emission, for the record: a
+    # 4-byte key per budgeted slot, the count row of every column, nine
+    # geometry rows and the rank for columns with a live slot.
+    k1_padded_bytes = sum(
+        4 * padded_slots(t)[0] * (t.k_budget + 1)
+        + 4 * int((t.count > 0).sum()) * (9 + (plan.mult > 0))
         for t in plan.tiers)
-    k1_live = sum(float(torch.clamp(t.attrs[3], max=t.k_budget).sum())
-                  for t in plan.tiers)
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S,
-                   k1_live * K1_OPS_PER_SLOT / FP32_OPS_PER_S) * 1e3
-    k1_by = ("bytes" if k1_bytes / HBM_BYTES_PER_S
-             >= k1_live * K1_OPS_PER_SLOT / FP32_OPS_PER_S else "operations")
 
     k2_ms = cuda_ms(lambda: composite_cuda.composite_fwd(*k2_args), reps=20,
                     warmup=3)
@@ -799,10 +845,12 @@ def main() -> int:
     k2_hits = alpha_hits(attrs_a, pg, start, count, plan.tiles_x, kend_k)
     k2_bound, k2_by = ops_bound(k2_bytes, k2_evals, K2_OPS_PER_EVAL, k2_hits,
                                 K2_OPS_PER_HIT)
-    print(f"K1 at frame a {card}: kernel {k1_ms:.3f} ms for {len(plan.tiers)} "
-          f"launches, plain {k1_plain_ms:.3f} ms, bound {k1_bound:.3f} ms "
-          f"({k1_by}: {k1_bytes / 1e6:.1f} MB, {k1_live:.3e} live slots)",
-          flush=True)
+    print(f"K1 at frame a {card}: kernel {k1_ms:.3f} ms (one launch), plain "
+          f"{k1_plain_ms:.3f} ms, bound {k1_bound:.4f} ms ({k1_by}: "
+          f"{k1_bytes / 1e6:.1f} MB, {k1_ops:.3e} operations for "
+          f"{plan.n_live} live slots of {n_live_g} Gaussians, {kept_a} kept "
+          f"pairs); the padded emission's byte count "
+          f"{k1_padded_bytes / 1e6:.1f} MB", flush=True)
     print(f"K2 at frame a {card}: kernel {k2_ms:.3f} ms, plain "
           f"{k2_plain_ms:.3f} ms, bound {k2_bound:.3f} ms ({k2_by}: "
           f"{k2_bytes / 1e6:.1f} MB, {k2_evals:.4e} pair-pixel evaluations, "
@@ -997,11 +1045,12 @@ def main() -> int:
           f"{n_tb} tiles, K2 walks {k2_bench_walk:.0f} pairs "
           f"(sum k_end {int(k2_kend.sum())})", flush=True)
     check(probe_launches > 0, "the anatomy run launched the probe kernel")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB", flush=True)
+    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
+    print(f"peak device memory {card}: {script_peak / 2**30:.2f} GiB for the "
+          f"script, {peak_b / 2**30:.2f} GiB at frame b's render", flush=True)
 
     kernels = [
-        {"name": "K1 emit_tile_keys", "route": "cuda",
+        {"name": "K1 emit_tile_pairs", "route": "cuda",
          "source": "sage3d_tpu_torch/csrc/emit.cu",
          "replaces": "sage3d_tpu/ops/binning.py:153",
          "launches": launches["emit"] + launches_train["emit"]

@@ -31,8 +31,10 @@
 //
 // What bounds it on an H100: operations, as K2 (pair-pixel evaluations of
 // the quadratic, the exp and the blend; bytes are two orders of magnitude
-// below). Design: K2's, one 1024-thread block per tile, one thread per pixel,
-// the chunk's coefficients in shared memory.
+// below). Design: K2's, 128 threads per tile with 8 pixels (one column) each,
+// a straight-line pixel body with the cutoffs as one PTX select, the next
+// chunk's attribute rows loaded while a chunk is swept into the other half of
+// a double-buffered coefficient array, one barrier per chunk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,143 +42,230 @@
 namespace {
 
 constexpr int kTile = 32;
-constexpr int kNpix = kTile * kTile;  // threads per block, one per pixel
-constexpr int kChunk = 128;           // pairs per chunk
-constexpr int kNfeat = 16;            // floats per attribute row
-constexpr int kNch = 8;               // r,g,b,depth,alpha,trans,best_w,best_id
+constexpr int kNpix = kTile * kTile;
+constexpr int kPix = 8;                   // pixels per thread: rows of a column
+constexpr int kThreads = kNpix / kPix;    // threads per block
+constexpr int kMinBlocks = 3;             // blocks an SM must hold
+constexpr int kChunk = 128;               // pairs per chunk
+constexpr int kNfeat = 16;                // floats per attribute row
+constexpr int kNch = 8;                   // r,g,b,depth,alpha,trans,best_w,best_id
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTransEps = 1e-4f;
+static_assert(kTile % kPix == 0 && kThreads % 32 == 0, "pixel layout");
 
-struct Coef {
+struct __align__(16) Coef {
   float w0, wx, wy, ha, hc, b, op, r, g, bl, depth, sem, a, c;
 };
 
+// One pair's coefficients from its attribute row, in K2's operations and
+// order, and the raw conic a, c for the no-exp stub.
+__device__ __forceinline__ Coef make_coef(const float4 (&q)[3], float ox,
+                                          float oy) {
+  const float a = q[0].x, b = q[0].y, c = q[0].z;
+  const float cx = q[0].w - ox;
+  const float cy = q[1].x - oy;
+  Coef e;
+  e.w0 = -0.5f * (a * cx * cx + c * cy * cy) - b * cx * cy;
+  e.wx = a * cx + b * cy;
+  e.wy = c * cy + b * cx;
+  e.ha = 0.5f * a;
+  e.hc = 0.5f * c;
+  e.b = b;
+  e.op = q[1].y;
+  e.r = q[1].z;
+  e.g = q[1].w;
+  e.bl = q[2].x;
+  e.depth = q[2].y;
+  e.sem = q[2].z;
+  e.a = a;
+  e.c = c;
+  return e;
+}
+
+// K2's alpha from power and x = min(op * exp(min(power, 0)), 0.99):
+// power > 0 ? 0 : x, then 0 where that is below 1/255. As the PTX of two
+// compares and one select, which gives the same bits (for power > 0, x is
+// discarded either way): written as C++ conditionals, the compiler turns the
+// first into a branch around the exp, one per pixel, which serialises the
+// pixels' chains, and keeps two selects.
+__device__ __forceinline__ float cut_alpha(float power, float x) {
+  float r;
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.gt.f32 p, %1, 0f00000000;\n\t"
+      "setp.lt.or.f32 p, %2, %3, p;\n\t"
+      "selp.f32 %0, 0f00000000, %2, p;\n\t}"
+      : "=f"(r) : "f"(power), "f"(x), "f"(kAlphaMin));
+  return r;
+}
+
+__device__ __forceinline__ void load_row(const float* __restrict__ attrs,
+                                         int gid, float4 (&q)[3]) {
+  const float4* row = reinterpret_cast<const float4*>(attrs + (size_t)gid * kNfeat);
+  q[0] = row[0];
+  q[1] = row[1];
+  q[2] = row[2];
+}
+
 template <bool ET, bool EXP, bool SCAN, bool BLEND, bool ARGMAX>
-__global__ void __launch_bounds__(kNpix)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_anatomy_kernel(const float* __restrict__ attrs,
                          const int32_t* __restrict__ pair_gauss,
                          const int32_t* __restrict__ tile_start,
                          const int32_t* __restrict__ tile_count,
                          float* __restrict__ out, int n_tiles, int tiles_x,
                          int n_gauss, int n_pairs) {
-  __shared__ Coef coef[kChunk];
+  __shared__ Coef coef[2][kChunk];
   const int copy = blockIdx.x / n_tiles;
   const int t = blockIdx.x - copy * n_tiles;
   attrs += (size_t)copy * n_gauss * kNfeat;
   pair_gauss += (size_t)copy * n_pairs;
   tile_start += (size_t)copy * n_tiles;
   tile_count += (size_t)copy * n_tiles;
-  const int pix = threadIdx.x;
-  const float px = (float)(pix % kTile) + 0.5f;
-  const float py = (float)(pix / kTile) + 0.5f;
-  const float pxx = px * px, pyy = py * py, pxy = px * py;
+  const int tid = threadIdx.x;
   const float ox = (float)((t % tiles_x) * kTile);
   const float oy = (float)((t / tiles_x) * kTile);
   const int start = tile_start[t];
   const int count = tile_count[t];
   const int n_chunks = (count + kChunk - 1) / kChunk;
 
-  float T = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f, acc_a = 0.0f;
-  float best_w = 0.0f, best_id = -1.0f;
+  const int col = tid % kTile;
+  const int row0 = (tid / kTile) * kPix;
+  const float px = (float)col + 0.5f;
+  const float pxx = px * px;
+  float py[kPix], pyy[kPix], pxy[kPix];
+  float T[kPix], acc_r[kPix], acc_g[kPix], acc_b[kPix], acc_d[kPix],
+      acc_a[kPix], best_w[kPix], best_id[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    py[j] = (float)(row0 + j) + 0.5f;
+    pyy[j] = py[j] * py[j];
+    pxy[j] = px * py[j];
+    T[j] = 1.0f;
+    acc_r[j] = acc_g[j] = acc_b[j] = acc_d[j] = acc_a[j] = 0.0f;
+    best_w[j] = 0.0f;
+    best_id[j] = -1.0f;
+  }
+
+  auto has_pair = [&](int kk) {
+    return kk < n_chunks && tid < kChunk && tid < count - kk * kChunk;
+  };
+  auto pair_id = [&](int kk) {
+    const int p = start + kk * kChunk + tid;
+    if (p < 0 || p >= n_pairs) __trap();
+    return pair_gauss[p];
+  };
+  auto check_id = [&](int gid) {
+    if (gid < 0 || gid >= n_gauss) __trap();
+  };
+
+  if (has_pair(0)) {
+    const int gid = pair_id(0);
+    check_id(gid);
+    float4 rq[3];
+    load_row(attrs, gid, rq);
+    coef[0][tid] = make_coef(rq, ox, oy);
+  }
+  bool has_next = has_pair(1);
+  int gid_next = has_next ? pair_id(1) : 0;
+  __syncthreads();
+
   int k = 0;
   while (k < n_chunks) {
-    const int n_valid = min(count - k * kChunk, kChunk);
-    if (pix < n_valid) {
-      const int p = start + k * kChunk + pix;
-      if (p < 0 || p >= n_pairs) __trap();
-      const int gid = pair_gauss[p];
-      if (gid < 0 || gid >= n_gauss) __trap();
-      const float* row = attrs + (size_t)gid * kNfeat;
-      const float a = row[0], b = row[1], c = row[2];
-      const float cx = row[3] - ox;
-      const float cy = row[4] - oy;
-      Coef e;
-      e.w0 = -0.5f * (a * cx * cx + c * cy * cy) - b * cx * cy;
-      e.wx = a * cx + b * cy;
-      e.wy = c * cy + b * cx;
-      e.ha = 0.5f * a;
-      e.hc = 0.5f * c;
-      e.b = b;
-      e.op = row[5];
-      e.r = row[6];
-      e.g = row[7];
-      e.bl = row[8];
-      e.depth = row[9];
-      e.sem = row[10];
-      e.a = a;
-      e.c = c;
-      coef[pix] = e;
+    const int buf = k & 1;
+    float4 rq[3];
+    const bool load = has_next;
+    if (load) {
+      check_id(gid_next);
+      load_row(attrs, gid_next, rq);
     }
-    __syncthreads();
-    const float T0 = T;           // the chunk's starting transmittance
-    float max_alpha = 0.0f;       // SCAN off: the chunk's largest alpha
-    float w_first = 0.0f;         // BLEND off: w of the chunk's first pair
+    has_next = has_pair(k + 2);
+    if (has_next) gid_next = pair_id(k + 2);
+
+    float max_alpha[kPix];   // SCAN off: the chunk's largest alpha
+    float w_first[kPix];     // BLEND off: w of the chunk's first pair
+#pragma unroll
+    for (int j = 0; j < kPix; ++j) max_alpha[j] = w_first[j] = 0.0f;
+    const Coef* cf = coef[buf];
+    const int n_valid = min(count - k * kChunk, kChunk);
     for (int i = 0; i < n_valid; ++i) {
-      const Coef& e = coef[i];
-      float alpha;
-      if constexpr (EXP) {
-        const float power = e.w0 + e.wx * px + e.wy * py - e.ha * pxx -
-                            e.hc * pyy - e.b * pxy;
-        const float raw =
-            (power > 0.0f) ? 0.0f : e.op * expf(fminf(power, 0.0f));
-        alpha = fminf(raw, kAlphaMax);
-        if (alpha < kAlphaMin) alpha = 0.0f;
-      } else {
-        alpha = fminf(fabsf(e.op * (e.a * px + e.c * py + e.b)) * 1e-3f, 0.5f);
-      }
-      float w;
-      if constexpr (SCAN) {
-        w = alpha * T;
-      } else {
-        w = alpha * T0;
-        max_alpha = fmaxf(max_alpha, alpha);
-      }
-      if constexpr (BLEND) {
-        acc_r += w * e.r;
-        acc_g += w * e.g;
-        acc_b += w * e.bl;
-        acc_d += w * e.depth;
-        acc_a += w;
-      } else {
-        if (i == 0) w_first = w;
-      }
-      if constexpr (ARGMAX) {
-        if (w > best_w) {
-          best_w = w;
-          best_id = e.sem;
+      const Coef e = cf[i];
+      const float t1 = e.w0 + e.wx * px;
+      const float t3 = e.ha * pxx;
+      float alpha[kPix];
+#pragma unroll
+      for (int j = 0; j < kPix; ++j) {
+        if constexpr (EXP) {
+          const float power = t1 + e.wy * py[j] - t3 - e.hc * pyy[j] -
+                              e.b * pxy[j];
+          alpha[j] = cut_alpha(
+              power, fminf(e.op * expf(fminf(power, 0.0f)), kAlphaMax));
+        } else {
+          alpha[j] = fminf(
+              fabsf(e.op * (e.a * px + e.c * py[j] + e.b)) * 1e-3f, 0.5f);
         }
       }
-      if constexpr (SCAN) T *= 1.0f - alpha;
+#pragma unroll
+      for (int j = 0; j < kPix; ++j) {
+        // SCAN off: T holds the chunk's starting transmittance all chunk.
+        const float w = alpha[j] * T[j];
+        if constexpr (!SCAN) max_alpha[j] = fmaxf(max_alpha[j], alpha[j]);
+        if constexpr (BLEND) {
+          acc_r[j] += w * e.r;
+          acc_g[j] += w * e.g;
+          acc_b[j] += w * e.bl;
+          acc_d[j] += w * e.depth;
+          acc_a[j] += w;
+        } else {
+          w_first[j] = i == 0 ? w : w_first[j];
+        }
+        if constexpr (ARGMAX) {
+          const bool better = w > best_w[j];
+          best_w[j] = better ? w : best_w[j];
+          best_id[j] = better ? e.sem : best_id[j];
+        }
+        if constexpr (SCAN) T[j] *= 1.0f - alpha[j];
+      }
     }
-    if constexpr (!SCAN) T = T0 * (1.0f - max_alpha);
-    if constexpr (!BLEND) {
-      const float s = w_first * 1e-9f;
-      acc_r += s;
-      acc_g += s;
-      acc_b += s;
-      acc_d += s;
-      acc_a += s;
+#pragma unroll
+    for (int j = 0; j < kPix; ++j) {
+      if constexpr (!SCAN) T[j] = T[j] * (1.0f - max_alpha[j]);
+      if constexpr (!BLEND) {
+        const float s = w_first[j] * 1e-9f;
+        acc_r[j] += s;
+        acc_g[j] += s;
+        acc_b[j] += s;
+        acc_d[j] += s;
+        acc_a[j] += s;
+      }
     }
+    if (load) coef[buf ^ 1][tid] = make_coef(rq, ox, oy);
     ++k;
-    // Also the barrier before the next chunk overwrites `coef`.
+    // The one barrier of the chunk (with ET, also the early-stop vote); it
+    // publishes the next chunk's coefficients.
     if constexpr (ET) {
-      if (!__syncthreads_or(T > kTransEps)) break;
+      bool live = false;
+#pragma unroll
+      for (int j = 0; j < kPix; ++j) live |= T[j] > kTransEps;
+      if (!__syncthreads_or(live)) break;
     } else {
       __syncthreads();
     }
   }
 
-  float* o = out + (size_t)blockIdx.x * kNch * kNpix + pix;
-  o[0 * kNpix] = acc_r;
-  o[1 * kNpix] = acc_g;
-  o[2 * kNpix] = acc_b;
-  o[3 * kNpix] = acc_d;
-  o[4 * kNpix] = acc_a;
-  o[5 * kNpix] = T;
-  o[6 * kNpix] = best_w;
-  o[7 * kNpix] = best_id;
+  float* o = out + (size_t)blockIdx.x * kNch * kNpix + row0 * kTile + col;
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    float* oj = o + j * kTile;
+    oj[0 * kNpix] = acc_r[j];
+    oj[1 * kNpix] = acc_g[j];
+    oj[2 * kNpix] = acc_b[j];
+    oj[3 * kNpix] = acc_d[j];
+    oj[4 * kNpix] = acc_a[j];
+    oj[5 * kNpix] = T[j];
+    oj[6 * kNpix] = best_w[j];
+    oj[7 * kNpix] = best_id[j];
+  }
 }
 
 typedef void (*KernelFn)(const float*, const int32_t*, const int32_t*,
@@ -210,7 +299,7 @@ extern "C" int sage3d_composite_anatomy(const void* attrs,
                      do_blend != 0, do_argmax != 0);
   if (fn == nullptr || batch < 1) return (int)cudaErrorInvalidValue;
   if (n_tiles > 0) {
-    fn<<<n_tiles * batch, kNpix, 0, (cudaStream_t)stream>>>(
+    fn<<<n_tiles * batch, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)attrs, (const int32_t*)pair_gauss,
         (const int32_t*)tile_start, (const int32_t*)tile_count, (float*)out,
         n_tiles, tiles_x, n_gauss, n_pairs);

@@ -8,25 +8,44 @@
 // and alpha, keeps the final T and the best weight with its semantic id (the
 // first maximum in depth order), and stops once every pixel of the tile has
 // T <= 1e-4, checked after each chunk. k_end is the number of chunks done.
-//
-// What bounds it on an H100: operations. Each pair-pixel evaluation is ~25
-// f32 operations and one expf, and a tile re-reads each of its pairs' 64-byte
-// attribute rows only once per chunk, so arithmetic outweighs bytes by two
-// orders of magnitude. Design: one block of 1024 threads per tile, one thread
-// per pixel, state in registers. Per chunk, 128 threads gather the chunk's
-// attribute rows (attrs[pair_gauss[i]], 16 floats each) and turn them into
-// tile-local quadratic coefficients in shared memory once, so the per-pixel
-// loop reads broadcast shared memory and does only the per-pixel terms. After
-// each chunk __syncthreads_or decides for the whole block whether to go on.
 // There is no per-pixel cutoff: a pixel keeps accumulating until the whole
 // tile is saturated, as on the TPU, so k_end and the images match it.
+//
+// What bounds it on an H100: operations. Each pair-pixel evaluation is ~18
+// f32 operations and one expf, each one with alpha > 0 ~14 more, and a tile
+// reads each of its pairs' attribute rows once per chunk, so arithmetic
+// outweighs bytes by two orders of magnitude; the kernel runs near the
+// instruction-issue limit. Design:
+//   - 128 threads per tile, 8 pixels per thread: one column and 8 rows (a
+//     warp holds a 32x8 strip). The pixels of a thread share x, so
+//     t1 = w0 + wx * px and t3 = ha * pxx are formed once per pair and each
+//     pixel evaluates t1 + wy * py - t3 - hc * pyy - b * pxy: K2's
+//     association, left to right.
+//   - The pixel body is straight-line, unrolled over the 8 pixels: the
+//     cutoffs and the best-weight update (w > best_w, strict, so the first
+//     maximum in depth order stays) are selects, so the 8 pixels' dependent
+//     transmittance chains interleave. The power > 0 cutoff is a PTX select
+//     (cut_alpha): as a C++ conditional it compiled to a branch around the
+//     exp of every pixel. The rest of an evaluation is the fixed f32
+//     arithmetic; the kernel runs near the instruction-issue rate.
+//   - kSkipMisses (off): a warp would skip the blend of a pair whose alpha
+//     is 0 on all its 256 pixels, an exact no-op; the vote cost more than it
+//     saved, also on the sparse bench box (benchmarks/kernel_variants.py).
+//   - __launch_bounds__(128, 3): 150 registers (kernel_variants.py: 128
+//     registers at 4 blocks an SM 3% slower, 4 pixels a thread 5% slower).
+//   - Double-buffered chunks: while chunk k is swept, each thread's load of
+//     chunk k+1's attribute row (three float4) and chunk k+2's pair id are in
+//     flight; the row becomes chunk k+1's coefficients in the other buffer.
+//   - One barrier per chunk: __syncthreads_or, which is also the early-stop
+//     vote, and publishes the next chunk's coefficients.
 //
 // Arithmetic: alpha uses the TPU kernel's tile-local expanded form
 // (_alpha_rows: w0, wx, wy from the global mean minus the tile origin, pixel
 // centers at +0.5) in its operation order, built with -fmad=false and IEEE
-// expf, so the power > 0 and alpha < 1/255 decisions follow the JAX kernel.
-// The TPU layout workarounds (feature-major blocks, rolled two-block windows,
-// guard blocks, the (1,8,128) k_end block) are gone.
+// expf, so the power > 0 and alpha < 1/255 decisions follow the JAX kernel,
+// and K3 (composite_bwd.cu) replays w and T bit for bit. The TPU layout
+// workarounds (feature-major blocks, rolled two-block windows, guard blocks,
+// the (1,8,128) k_end block) are gone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,102 +53,204 @@
 namespace {
 
 constexpr int kTile = 32;
-constexpr int kNpix = kTile * kTile;  // threads per block, one per pixel
-constexpr int kChunk = 128;           // pairs per chunk
-constexpr int kNfeat = 16;            // floats per attribute row
-constexpr int kNch = 8;               // r,g,b,depth,alpha,trans,best_w,best_id
+constexpr int kNpix = kTile * kTile;
+constexpr int kPix = 8;                   // pixels per thread: rows of a column
+constexpr int kThreads = kNpix / kPix;    // threads per block
+constexpr int kMinBlocks = 3;             // blocks an SM must hold
+constexpr bool kSkipMisses = false;       // a warp skips the blend of a pair
+                                          // that misses all its pixels
+constexpr int kChunk = 128;               // pairs per chunk
+constexpr int kNfeat = 16;                // floats per attribute row
+constexpr int kNch = 8;                   // r,g,b,depth,alpha,trans,best_w,best_id
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTransEps = 1e-4f;
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kTile % kPix == 0 && kThreads % 32 == 0, "pixel layout");
 
-struct Coef {
+struct __align__(16) Coef {
   float w0, wx, wy, ha, hc, b, op, r, g, bl, depth, sem;
 };
 
-__global__ void __launch_bounds__(kNpix)
+// One pair's coefficients from its attribute row (columns 0-10), in K2's
+// operations and order.
+__device__ __forceinline__ Coef make_coef(const float4 (&q)[3], float ox,
+                                          float oy) {
+  const float a = q[0].x, b = q[0].y, c = q[0].z;
+  const float cx = q[0].w - ox;
+  const float cy = q[1].x - oy;
+  Coef e;
+  e.w0 = -0.5f * (a * cx * cx + c * cy * cy) - b * cx * cy;
+  e.wx = a * cx + b * cy;
+  e.wy = c * cy + b * cx;
+  e.ha = 0.5f * a;
+  e.hc = 0.5f * c;
+  e.b = b;
+  e.op = q[1].y;
+  e.r = q[1].z;
+  e.g = q[1].w;
+  e.bl = q[2].x;
+  e.depth = q[2].y;
+  e.sem = q[2].z;
+  return e;
+}
+
+// K2's alpha from power and x = min(op * exp(min(power, 0)), 0.99):
+// power > 0 ? 0 : x, then 0 where that is below 1/255. As the PTX of two
+// compares and one select, which gives the same bits (for power > 0, x is
+// discarded either way): written as C++ conditionals, the compiler turns the
+// first into a branch around the exp, one per pixel, which serialises the
+// pixels' chains, and keeps two selects.
+__device__ __forceinline__ float cut_alpha(float power, float x) {
+  float r;
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.gt.f32 p, %1, 0f00000000;\n\t"
+      "setp.lt.or.f32 p, %2, %3, p;\n\t"
+      "selp.f32 %0, 0f00000000, %2, p;\n\t}"
+      : "=f"(r) : "f"(power), "f"(x), "f"(kAlphaMin));
+  return r;
+}
+
+__device__ __forceinline__ void load_row(const float* __restrict__ attrs,
+                                         int gid, float4 (&q)[3]) {
+  const float4* row = reinterpret_cast<const float4*>(attrs + (size_t)gid * kNfeat);
+  q[0] = row[0];
+  q[1] = row[1];
+  q[2] = row[2];
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_fwd_kernel(const float* __restrict__ attrs,
                      const int32_t* __restrict__ pair_gauss,
                      const int32_t* __restrict__ tile_start,
                      const int32_t* __restrict__ tile_count,
                      float* __restrict__ out, int32_t* __restrict__ kend,
                      int tiles_x, int n_gauss, int n_pairs) {
-  __shared__ Coef coef[kChunk];
+  __shared__ Coef coef[2][kChunk];
   const int t = blockIdx.x;
-  const int pix = threadIdx.x;
-  const float px = (float)(pix % kTile) + 0.5f;
-  const float py = (float)(pix / kTile) + 0.5f;
-  const float pxx = px * px, pyy = py * py, pxy = px * py;
+  const int tid = threadIdx.x;
   const float ox = (float)((t % tiles_x) * kTile);
   const float oy = (float)((t / tiles_x) * kTile);
   const int start = tile_start[t];
   const int count = tile_count[t];
   const int n_chunks = (count + kChunk - 1) / kChunk;
 
-  float T = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f, acc_a = 0.0f;
-  float best_w = 0.0f, best_id = -1.0f;
-  int k = 0;
-  while (k < n_chunks) {
-    const int n_valid = min(count - k * kChunk, kChunk);
-    if (pix < n_valid) {
-      const int p = start + k * kChunk + pix;
-      if (p < 0 || p >= n_pairs) __trap();
-      const int gid = pair_gauss[p];
-      if (gid < 0 || gid >= n_gauss) __trap();
-      const float* row = attrs + (size_t)gid * kNfeat;
-      const float a = row[0], b = row[1], c = row[2];
-      const float cx = row[3] - ox;
-      const float cy = row[4] - oy;
-      Coef e;
-      e.w0 = -0.5f * (a * cx * cx + c * cy * cy) - b * cx * cy;
-      e.wx = a * cx + b * cy;
-      e.wy = c * cy + b * cx;
-      e.ha = 0.5f * a;
-      e.hc = 0.5f * c;
-      e.b = b;
-      e.op = row[5];
-      e.r = row[6];
-      e.g = row[7];
-      e.bl = row[8];
-      e.depth = row[9];
-      e.sem = row[10];
-      coef[pix] = e;
-    }
-    __syncthreads();
-    for (int i = 0; i < n_valid; ++i) {
-      const Coef& e = coef[i];
-      const float power = e.w0 + e.wx * px + e.wy * py - e.ha * pxx -
-                          e.hc * pyy - e.b * pxy;
-      const float raw = (power > 0.0f) ? 0.0f : e.op * expf(fminf(power, 0.0f));
-      float alpha = fminf(raw, kAlphaMax);
-      if (alpha < kAlphaMin) alpha = 0.0f;
-      const float w = alpha * T;
-      acc_r += w * e.r;
-      acc_g += w * e.g;
-      acc_b += w * e.bl;
-      acc_d += w * e.depth;
-      acc_a += w;
-      if (w > best_w) {
-        best_w = w;
-        best_id = e.sem;
-      }
-      T *= 1.0f - alpha;
-    }
-    ++k;
-    // Also the barrier before the next chunk overwrites `coef`.
-    if (!__syncthreads_or(T > kTransEps)) break;
+  // Pixels of this thread: column col, rows row0 .. row0 + kPix - 1, with
+  // the coordinates K2 computes for them.
+  const int col = tid % kTile;
+  const int row0 = (tid / kTile) * kPix;
+  const float px = (float)col + 0.5f;
+  const float pxx = px * px;
+  float py[kPix], pyy[kPix], pxy[kPix];
+  float T[kPix], acc_r[kPix], acc_g[kPix], acc_b[kPix], acc_d[kPix],
+      acc_a[kPix], best_w[kPix], best_id[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    py[j] = (float)(row0 + j) + 0.5f;
+    pyy[j] = py[j] * py[j];
+    pxy[j] = px * py[j];
+    T[j] = 1.0f;
+    acc_r[j] = acc_g[j] = acc_b[j] = acc_d[j] = acc_a[j] = 0.0f;
+    best_w[j] = 0.0f;
+    best_id[j] = -1.0f;
   }
 
-  float* o = out + (size_t)t * kNch * kNpix + pix;
-  o[0 * kNpix] = acc_r;
-  o[1 * kNpix] = acc_g;
-  o[2 * kNpix] = acc_b;
-  o[3 * kNpix] = acc_d;
-  o[4 * kNpix] = acc_a;
-  o[5 * kNpix] = T;
-  o[6 * kNpix] = best_w;
-  o[7 * kNpix] = best_id;
-  if (pix == 0) kend[t] = k;
+  // Whether this thread loads a pair of chunk kk, and that pair's Gaussian
+  // id (loaded here, checked where it is used, so the load can be in flight).
+  auto has_pair = [&](int kk) {
+    return kk < n_chunks && tid < kChunk && tid < count - kk * kChunk;
+  };
+  auto pair_id = [&](int kk) {
+    const int p = start + kk * kChunk + tid;
+    if (p < 0 || p >= n_pairs) __trap();
+    return pair_gauss[p];
+  };
+  auto check_id = [&](int gid) {
+    if (gid < 0 || gid >= n_gauss) __trap();
+  };
+
+  // Chunk 0's coefficients, and chunk 1's pair id in flight.
+  if (has_pair(0)) {
+    const int gid = pair_id(0);
+    check_id(gid);
+    float4 rq[3];
+    load_row(attrs, gid, rq);
+    coef[0][tid] = make_coef(rq, ox, oy);
+  }
+  bool has_next = has_pair(1);
+  int gid_next = has_next ? pair_id(1) : 0;
+  __syncthreads();
+
+  int k = 0;
+  while (k < n_chunks) {
+    const int buf = k & 1;
+    // Loads for the next chunks, consumed after this chunk's sweep.
+    float4 rq[3];
+    const bool load = has_next;
+    if (load) {
+      check_id(gid_next);
+      load_row(attrs, gid_next, rq);
+    }
+    has_next = has_pair(k + 2);
+    if (has_next) gid_next = pair_id(k + 2);
+
+    const Coef* cf = coef[buf];
+    const int n_valid = min(count - k * kChunk, kChunk);
+    for (int i = 0; i < n_valid; ++i) {
+      const Coef e = cf[i];
+      const float t1 = e.w0 + e.wx * px;
+      const float t3 = e.ha * pxx;
+      float alpha[kPix];
+      bool hit = false;
+#pragma unroll
+      for (int j = 0; j < kPix; ++j) {
+        const float power = t1 + e.wy * py[j] - t3 - e.hc * pyy[j] -
+                            e.b * pxy[j];
+        alpha[j] = cut_alpha(
+            power, fminf(e.op * expf(fminf(power, 0.0f)), kAlphaMax));
+        hit |= alpha[j] > 0.0f;
+      }
+      // A pair that leaves every pixel of the warp at alpha 0 changes
+      // nothing below (w = 0 adds exact zeros, T is multiplied by 1).
+      if (kSkipMisses && !__any_sync(kFull, hit)) continue;
+#pragma unroll
+      for (int j = 0; j < kPix; ++j) {
+        const float w = alpha[j] * T[j];
+        acc_r[j] += w * e.r;
+        acc_g[j] += w * e.g;
+        acc_b[j] += w * e.bl;
+        acc_d[j] += w * e.depth;
+        acc_a[j] += w;
+        const bool better = w > best_w[j];
+        best_w[j] = better ? w : best_w[j];
+        best_id[j] = better ? e.sem : best_id[j];
+        T[j] *= 1.0f - alpha[j];
+      }
+    }
+    if (load) coef[buf ^ 1][tid] = make_coef(rq, ox, oy);
+    ++k;
+    // The one barrier of the chunk: the early-stop vote, which also
+    // publishes the next chunk's coefficients.
+    bool live = false;
+#pragma unroll
+    for (int j = 0; j < kPix; ++j) live |= T[j] > kTransEps;
+    if (!__syncthreads_or(live)) break;
+  }
+
+  float* o = out + (size_t)t * kNch * kNpix + row0 * kTile + col;
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    float* oj = o + j * kTile;
+    oj[0 * kNpix] = acc_r[j];
+    oj[1 * kNpix] = acc_g[j];
+    oj[2 * kNpix] = acc_b[j];
+    oj[3 * kNpix] = acc_d[j];
+    oj[4 * kNpix] = acc_a[j];
+    oj[5 * kNpix] = T[j];
+    oj[6 * kNpix] = best_w[j];
+    oj[7 * kNpix] = best_id[j];
+  }
+  if (tid == 0) kend[t] = k;
 }
 
 }  // namespace
@@ -140,7 +261,7 @@ extern "C" int sage3d_composite_fwd(const void* attrs, const void* pair_gauss,
                                     void* kend, int n_tiles, int tiles_x,
                                     int n_gauss, int n_pairs, void* stream) {
   if (n_tiles > 0) {
-    composite_fwd_kernel<<<n_tiles, kNpix, 0, (cudaStream_t)stream>>>(
+    composite_fwd_kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)attrs, (const int32_t*)pair_gauss,
         (const int32_t*)tile_start, (const int32_t*)tile_count, (float*)out,
         (int32_t*)kend, tiles_x, n_gauss, n_pairs);

@@ -38,8 +38,9 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "emit": ("emit.cu", {
-        # attrs, rank, out, n_pad, k_budget, tiles_x, n_tiles, mult, stream
-        "sage3d_emit_tile_keys": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # table, offsets, n, n_live, tiles_x, mult, keys, gauss, counter,
+        # stream
+        "sage3d_emit_tile_pairs": [_P, _P, _I, _L, _I, _I, _P, _P, _P, _P],
     }),
     "composite_fwd": ("composite_fwd.cu", {
         # attrs, pair_gauss, tile_start, tile_count, out, kend, n_tiles,

@@ -5,23 +5,27 @@ contracts:
 
   1. Each visible Gaussian gets a depth RANK (front-to-back, ties broken by
      index — the oracle's stable order) from a stable argsort.
-  2. Every Gaussian emits up to ``k_small`` candidate (tile, Gaussian) keys
-     from its tight AABB tile rect; the ``m_big`` largest spanners emit up to
-     ``k_big``, and an optional mid tier up to ``k_mid``. Each candidate is
-     culled by the exact ellipse-tile test. Emission is kernel K1
-     (``csrc/emit.cu``); ``emit_tile_keys_plain`` is its plain version.
-  3. Keys are ``tile * 2^rank_bits + rank`` in int32 (INT32_MAX when culled).
-     The slots K1 kept are compacted out of its padded (k, n) output, and one
-     sort orders them per tile front to back. When the fused key cannot fit
-     int32 (more than 2047 tiles, e.g. 4K frames) the binning sorts on the
-     pair (tile, rank) instead.
+  2. Every Gaussian may emit up to ``k_small`` candidate (tile, Gaussian)
+     pairs from its tight AABB tile rect; the ``m_big`` largest spanners up
+     to ``k_big``, and an optional mid tier up to ``k_mid``. The tiers split
+     the Gaussians by tile count, so each Gaussian has its live slots
+     (``count_eff``) in at most one of them, and one table describes all.
+     Each live slot's candidate is culled by the exact ellipse-tile test.
+     Emission is kernel K1 (``csrc/emit.cu``): one launch walks the live
+     slots of every tier and writes the kept pairs compacted;
+     ``emit_tile_pairs_plain`` is its plain version.
+  3. Keys are ``tile * 2^rank_bits + rank`` in int32; one sort orders the
+     kept pairs per tile front to back. When the fused key cannot fit int32
+     (more than 2047 tiles, e.g. 4K frames) the key is the int64
+     ``(tile << 31) | rank`` instead.
   4. Per-tile [start, count) ranges come from a searchsorted over T queries.
 
-The JAX package sorts the whole padded emission array (static shapes); here
-only the kept pairs are sorted, so ``pair_gauss`` holds exactly ``n_pairs``
-entries and the per-tile lists are the same. Pairs dropped by the emission
-budgets are counted in ``overflow`` — never silently lost. Indices carry no
-gradient.
+The JAX package gives every budgeted slot a key and sorts the whole padded
+emission array (static shapes); here only the kept pairs exist, so
+``pair_gauss`` holds exactly ``n_pairs`` entries and the per-tile lists are
+the same. ``emit_tile_keys_plain`` is the padded counterpart of the JAX
+kernel, for the parity tests. Pairs dropped by the emission budgets are
+counted in ``overflow`` — never silently lost. Indices carry no gradient.
 """
 
 from __future__ import annotations
@@ -45,12 +49,13 @@ SUGGEST_THRESHOLDS = (4, 8, 16, 32, 64, 128)
 # the budgets dict keys that are bin_gaussians' keyword arguments
 EMIT_BUDGET_KEYS = ("k_small", "m_big", "k_big", "m_mid", "k_mid")
 
-EMIT_GB = 1024  # emission columns are padded to a multiple of this (as in the
-                # JAX package), so K1 sees the same table shapes there
-COMPACT_STEP = 1 << 30   # most slots one compaction pass scans (int32-indexed)
-ATTR_ROWS = 16  # emission attr table rows:
+EMIT_GB = 1024  # the padded tier tables' columns are a multiple of this (as
+                # in the JAX package)
+ATTR_ROWS = 16  # padded tier table rows (the JAX kernel's layout):
                 # [x0, y0, nx, count_eff, mx, my, cut2, rank(bitcast),
                 #  conic_a, conic_b, conic_c, 5 x pad]
+LIVE_COLS = 12  # K1's per-Gaussian table: columns 0-10 of those rows and a
+                # pad, three float4 a row
 
 
 class TileBins(NamedTuple):
@@ -94,15 +99,10 @@ def _tile_rect(proj: ProjectedGaussians, tiles_x: int, tiles_y: int):
 # K1: tile-key emission
 # ---------------------------------------------------------------------------
 
-def emit_tile_keys_plain(attrs: torch.Tensor, rank: torch.Tensor,
-                         k_budget: int, tiles_x: int, n_tiles: int,
-                         mult: int) -> torch.Tensor:
-    """Plain PyTorch version of K1, operation for operation: (k_budget, n)
-    int32 keys (``mult`` > 0) or tile ids (``mult`` == 0), k-major."""
-    x0, y0, nx, count, mx, my, cut2 = (attrs[i:i + 1] for i in range(7))
-    ca, cb, cc = attrs[8:9], attrs[9:10], attrs[10:11]
-    kf = torch.arange(k_budget, dtype=torch.float32,
-                      device=attrs.device)[:, None]
+def _slot_tiles(kf, x0, y0, nx, mx, my, cut2, ca, cb, cc, tiles_x: int):
+    """The tile of candidate slot ``kf`` (float) of a Gaussian's rect, and
+    whether it survives the exact ellipse-tile cull, in K1's f32 operations
+    and order (the arguments broadcast). Returns (keep, tile id int32)."""
     nxs = torch.clamp(nx, min=1.0)   # padded columns carry nx=0 (and count=0)
     inv = 1.0 / nxs
     q = torch.floor(kf * inv)
@@ -135,83 +135,151 @@ def emit_tile_keys_plain(attrs: torch.Tensor, rank: torch.Tensor,
     m2 = torch.where(inside, 0.0, m2)
     # 1e-3 relative+absolute margin >> f32 rounding of this ~10-op chain:
     # over-keeps a hair's width of tiles, never drops a contributing pair.
-    valid = (kf < count) & (m2 <= cut2 * 1.001 + 1e-3)
-    tid = (ty * float(tiles_x) + tx).to(torch.int32)
+    keep = m2 <= cut2 * 1.001 + 1e-3
+    return keep, (ty * float(tiles_x) + tx).to(torch.int32)
+
+
+def emit_tile_keys_plain(attrs: torch.Tensor, rank: torch.Tensor,
+                         k_budget: int, tiles_x: int, n_tiles: int,
+                         mult: int) -> torch.Tensor:
+    """One tier's padded emission, as the JAX kernel ``_emit_kernel``
+    computes it (the parity tests hold the two equal): (k_budget, n) int32
+    keys (``mult`` > 0; INVALID_KEY for a slot past the count or culled) or
+    tile ids (``mult`` == 0; ``n_tiles`` there), k-major. ``attrs``: the
+    (ATTR_ROWS, n) table of ``padded_tier``. K1 computes the same keys for
+    the live slots only."""
+    x0, y0, nx, count, mx, my, cut2 = (attrs[i:i + 1] for i in range(7))
+    ca, cb, cc = attrs[8:9], attrs[9:10], attrs[10:11]
+    kf = torch.arange(k_budget, dtype=torch.float32,
+                      device=attrs.device)[:, None]
+    keep, tid = _slot_tiles(kf, x0, y0, nx, mx, my, cut2, ca, cb, cc, tiles_x)
+    valid = (kf < count) & keep
     if mult:
         return torch.where(valid, tid * mult + rank[None, :], INVALID_KEY)
     return torch.where(valid, tid, n_tiles)
 
 
-def emit_tile_keys(attrs: torch.Tensor, rank: torch.Tensor, k_budget: int,
-                   tiles_x: int, n_tiles: int, mult: int) -> torch.Tensor:
-    """K1 wrapper. ``attrs``: (ATTR_ROWS, n) float32, ``rank``: (n,) int32,
-    both contiguous on one device. A CPU tensor takes the plain version; a
-    CUDA tensor launches ``csrc/emit.cu``."""
-    if attrs.dim() != 2 or attrs.shape[0] != ATTR_ROWS:
-        raise ValueError(f"attrs must be ({ATTR_ROWS}, n), got {tuple(attrs.shape)}")
-    n = attrs.shape[1]
-    if attrs.dtype != torch.float32 or rank.dtype != torch.int32:
-        raise TypeError("emit_tile_keys takes float32 attrs and int32 ranks")
-    if rank.shape != (n,) or rank.device != attrs.device:
-        raise ValueError("rank must be (n,) on the device of attrs")
-    if attrs.device.type == "cpu":
-        return emit_tile_keys_plain(attrs, rank, k_budget, tiles_x, n_tiles,
-                                    mult)
-    if attrs.device.type != "cuda":
-        raise ValueError(f"emit_tile_keys: unsupported device {attrs.device}")
-    if not (attrs.is_contiguous() and rank.is_contiguous()):
-        raise ValueError("emit_tile_keys: inputs must be contiguous")
-    if not 0 < k_budget < 2**31 or n >= 2**31:
-        raise ValueError(f"emit_tile_keys: k_budget {k_budget} or n {n} "
-                         "outside int32")
-    out = torch.empty((k_budget, n), dtype=torch.int32, device=attrs.device)
+def emit_tile_pairs_plain(table: torch.Tensor, offsets: torch.Tensor,
+                          n_live: int, tiles_x: int, mult: int):
+    """Plain PyTorch version of K1: live slot s is candidate
+    ``s - offsets[g]`` of the Gaussian g with ``offsets[g] <= s <
+    offsets[g + 1]``; its tile and cull as ``emit_tile_keys_plain``. Returns
+    (keys, gauss int32, n_kept () int64) as ``emit_tile_pairs``, with exactly
+    the kept pairs, in slot order."""
+    dev = table.device
+    n = table.shape[0]
+    g = torch.repeat_interleave(torch.arange(n, device=dev),
+                                offsets[1:] - offsets[:-1],
+                                output_size=n_live)
+    kf = (torch.arange(n_live, device=dev) - offsets[g]).to(torch.float32)
+    row = table[g]
+    keep, tid = _slot_tiles(kf, *(row[:, i] for i in (0, 1, 2, 4, 5, 6, 8, 9,
+                                                      10)), tiles_x)
+    rank = table[:, 7].contiguous().view(torch.int32)[g]
+    if mult:
+        keys = tid * mult + rank
+    else:
+        keys = (tid.to(torch.int64) << 31) | rank.to(torch.int64)
+    keys = keys[keep]
+    return (keys, g[keep].to(torch.int32),
+            torch.tensor(keys.shape[0], dtype=torch.int64, device=dev))
+
+
+def emit_tile_pairs(table: torch.Tensor, offsets: torch.Tensor, n_live: int,
+                    tiles_x: int, mult: int):
+    """K1 wrapper: the kept (key, Gaussian) pairs of every live slot.
+
+    ``table``: (n, LIVE_COLS) float32, contiguous and 16-byte aligned (the
+    kernel reads a row as three float4): x0, y0, nx, count_eff, mx, my, cut2,
+    the int32 rank's bits, conic a, b, c, pad. ``offsets``: (n + 1,) int64,
+    the exclusive scan of count_eff; ``n_live`` its last entry, as a host int
+    (the caller's copy; checking it would wait for the device). Keys: int32
+    ``tile * mult + rank`` (``mult`` > 0) or int64 ``(tile << 31) | rank``.
+    Returns (keys (n_live,) int32 if ``mult`` else int64,
+    gauss (n_live,) int32, n_kept () int64 on the device): the first n_kept
+    entries are the kept pairs, in no particular order, the rest undefined.
+    Nothing waits for the device. A CPU tensor takes the plain version
+    (exactly the kept pairs, in slot order); a CUDA tensor launches
+    ``csrc/emit.cu``."""
+    if table.dim() != 2 or table.shape[1] != LIVE_COLS:
+        raise ValueError(f"table must be (n, {LIVE_COLS}), got "
+                         f"{tuple(table.shape)}")
+    n = table.shape[0]
+    if table.dtype != torch.float32 or offsets.dtype != torch.int64:
+        raise TypeError("emit_tile_pairs takes a float32 table and int64 "
+                        "offsets")
+    if offsets.shape != (n + 1,) or offsets.device != table.device:
+        raise ValueError("offsets must be (n + 1,) on the device of table")
+    if table.data_ptr() % 16:
+        raise ValueError("emit_tile_pairs: table must be 16-byte aligned (the "
+                         "kernel reads its rows as float4)")
+    if not 0 <= n_live < 2**38 or n >= 2**31:
+        raise ValueError(f"emit_tile_pairs: {n_live} live slots or {n} "
+                         "Gaussians past what the kernel indexes")
+    if table.device.type == "cpu":
+        return emit_tile_pairs_plain(table, offsets, n_live, tiles_x, mult)
+    if table.device.type != "cuda":
+        raise ValueError(f"emit_tile_pairs: unsupported device {table.device}")
+    if not (table.is_contiguous() and offsets.is_contiguous()):
+        raise ValueError("emit_tile_pairs: inputs must be contiguous")
+    dev = table.device
+    keys = torch.empty((n_live,), dtype=torch.int32 if mult else torch.int64,
+                       device=dev)
+    gauss = torch.empty((n_live,), dtype=torch.int32, device=dev)
+    n_kept = torch.empty((), dtype=torch.int64, device=dev)
     err = _build.launch(
-        _build.load("emit").sage3d_emit_tile_keys, attrs.device,
-        attrs.data_ptr(), rank.data_ptr(), out.data_ptr(), n, k_budget,
-        tiles_x, n_tiles, mult)
-    _build.check(err, "emit_tile_keys")
-    emit_tile_keys.launches += 1
-    return out
+        _build.load("emit").sage3d_emit_tile_pairs, dev, table.data_ptr(),
+        offsets.data_ptr(), n, n_live, tiles_x, mult, keys.data_ptr(),
+        gauss.data_ptr(), n_kept.data_ptr())
+    _build.check(err, "emit_tile_pairs")
+    emit_tile_pairs.launches += 1
+    return keys, gauss, n_kept
 
 
-emit_tile_keys.launches = 0
+emit_tile_pairs.launches = 0
 
 
 class EmitTier(NamedTuple):
-    """One emission tier, as K1 takes it: ``attrs`` (ATTR_ROWS, n_pad)
-    float32 with the slot count in row 3, ``rank`` and ``gauss`` (n_pad,)
-    int32 per column, ``k_budget`` slots per Gaussian. Columns are padded to
-    a multiple of EMIT_GB with count 0, as in the JAX package."""
-    attrs: torch.Tensor
-    rank: torch.Tensor
+    """One emission tier: ``gauss`` (m,) int64 Gaussian ids, ``count`` (m,)
+    int64 live slots of each (0 where the id is not in the tier), at most
+    ``k_budget``."""
     gauss: torch.Tensor
+    count: torch.Tensor
     k_budget: int
 
 
 class EmissionPlan(NamedTuple):
-    tiers: list           # [EmitTier]: small, (mid,) big
+    table: torch.Tensor      # (n, LIVE_COLS) float32, K1's per-Gaussian table
+    offsets: torch.Tensor    # (n + 1,) int64 exclusive scan of count_eff
+    n_live: int              # live slots of all tiers (offsets[-1])
+    tiers: list              # [EmitTier]: small, (mid,) big
     tiles_x: int
     tiles_y: int
-    mult: int             # 2^rank_bits for the fused key, 0 for two keys
+    mult: int                # 2^rank_bits for the fused key, 0 for two keys
     overflow: torch.Tensor   # () int64 pairs dropped by the budgets
 
 
-def _tier(rows: torch.Tensor, count_eff: torch.Tensor, rank: torch.Tensor,
-          gauss: torch.Tensor, k_budget: int) -> EmitTier:
-    n = rows.shape[0]
-    gb = min(EMIT_GB, max(128, n))
-    n_pad = -(-n // gb) * gb
+def padded_tier(plan: EmissionPlan, tier: EmitTier):
+    """The tier as the JAX kernel takes it: (ATTR_ROWS, n_pad) float32
+    table with the tier's count in row 3, and the (n_pad,) int32 rank and
+    Gaussian id per column; columns padded to a multiple of EMIT_GB with
+    count 0, as in the JAX package. For the parity tests of
+    ``emit_tile_keys_plain``; the binning does not build it."""
+    rows = plan.table[tier.gauss]
+    m = rows.shape[0]
+    gb = min(EMIT_GB, max(128, m))
+    n_pad = -(-m // gb) * gb
     attrs = torch.zeros((ATTR_ROWS, n_pad), dtype=torch.float32,
                         device=rows.device)
-    attrs[:rows.shape[1], :n] = rows.T
-    attrs[3, :n] = count_eff
+    attrs[:LIVE_COLS - 1, :m] = rows[:, :LIVE_COLS - 1].T
+    attrs[3, :m] = tier.count.to(torch.float32)
 
     def col(v):
         out = torch.zeros((n_pad,), dtype=torch.int32, device=rows.device)
-        out[:n] = v
+        out[:m] = v
         return out
 
-    return EmitTier(attrs, col(rank), col(gauss), k_budget)
+    return attrs, col(rows[:, 7].contiguous().view(torch.int32)), col(tier.gauss)
 
 
 def emission_plan(
@@ -225,7 +293,8 @@ def emission_plan(
     k_mid: int = 0,
 ) -> EmissionPlan:
     """Everything ``bin_gaussians`` hands to K1: depth ranks, the tight tile
-    rects, the tier selection, the emission tables and the overflow count."""
+    rects, the tier selection, the per-Gaussian table and live-slot offsets,
+    and the overflow count. Reads the number of live slots to the host."""
     dev = proj.depths.device
     tiles_x, tiles_y = num_tiles(width, height)
     n_tiles = tiles_x * tiles_y
@@ -261,35 +330,37 @@ def emission_plan(
         mid_idx = torch.argsort(-mid_score, stable=True)[:m_mid]
         mid_sel = mid_score[mid_idx] > 0
 
-    # The (n, ATTR_ROWS) attribute rows of every Gaussian; the int32 rank
-    # rides the f32 table as its bit pattern. cut2 is the opacity-aware
-    # alpha cutoff the exact ellipse cull tests against.
+    # The tiers' live slots. They split the Gaussians by count (small:
+    # count <= k_small; mid: k_small < count <= k_mid; big: above), so a
+    # Gaussian is live in one tier at most and count_eff adds them up.
+    count64 = count.to(torch.int64)
+    tiers = [EmitTier(torch.arange(n, device=dev),
+                      torch.where(vis & small, count64, 0), k_small)]
+    if use_mid:
+        tiers.append(EmitTier(mid_idx, torch.where(mid_sel, count64[mid_idx],
+                                                   0), k_mid))
+    tiers.append(EmitTier(big_idx, torch.where(
+        big_sel, torch.clamp(count64[big_idx], max=k_big), 0), k_big))
+    count_eff = tiers[0].count.clone()
+    for t in tiers[1:]:
+        count_eff.index_add_(0, t.gauss, t.count)
+    offsets = torch.zeros((n + 1,), dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(count_eff, 0)
+
+    # K1's (n, LIVE_COLS) table; the int32 rank rides it as its bit
+    # pattern. cut2 is the opacity-aware alpha cutoff the exact ellipse cull
+    # tests against.
     cut2 = 2.0 * torch.log(
         torch.clamp(proj.opacities.detach(), min=ALPHA_MIN) / ALPHA_MIN)
     conics = proj.conics.detach()
-    rows = torch.stack([
-        x0.to(torch.float32), y0.to(torch.float32),
-        nx.to(torch.float32), count.to(torch.float32), mx, my, cut2,
-        rank.view(torch.float32),
-        conics[:, 0], conics[:, 1], conics[:, 2],
-    ], dim=1)                                              # (n, 11)
-
-    count_small = torch.where(vis & small, torch.clamp(count, max=k_small),
-                              0).to(torch.float32)
-    tiers = [_tier(rows, count_small, rank,
-                   torch.arange(n, dtype=torch.int32, device=dev), k_small)]
-    if use_mid:
-        rows_mid = rows[mid_idx]
-        count_mid = torch.where(mid_sel, rows_mid[:, 3], 0.0)  # <= k_mid by sel
-        tiers.append(_tier(rows_mid, count_mid, rank[mid_idx], mid_idx, k_mid))
-    rows_big = rows[big_idx]
-    count_big = torch.where(big_sel, torch.clamp(rows_big[:, 3],
-                                                 max=float(k_big)), 0.0)
-    tiers.append(_tier(rows_big, count_big, rank[big_idx], big_idx, k_big))
+    table = torch.stack([
+        x0.to(torch.float32), y0.to(torch.float32), nx.to(torch.float32),
+        count_eff.to(torch.float32), mx, my, cut2, rank.view(torch.float32),
+        conics[:, 0], conics[:, 1], conics[:, 2], torch.zeros_like(mx),
+    ], dim=1)
 
     # Overflow accounting (conservative: AABB counts, pre-cull): big Gaussians
     # clipped at k_big, plus spanners not covered by the big or mid tier.
-    count64 = count.to(torch.int64)
     count_b = count64[big_idx]
     clipped_big = torch.sum(torch.where(big_sel,
                                         torch.clamp(count_b - k_big, min=0), 0))
@@ -297,24 +368,11 @@ def emission_plan(
     if use_mid:
         covered = covered + torch.sum(torch.where(mid_sel, count64[mid_idx], 0))
     dropped_whole = torch.sum(torch.where(vis & ~small, count64, 0)) - covered
-    return EmissionPlan(tiers, tiles_x, tiles_y,
-                        (1 << rank_bits) if fused_ok else 0,
+    return EmissionPlan(table, offsets, int(offsets[-1]), tiers, tiles_x,
+                        tiles_y, (1 << rank_bits) if fused_ok else 0,
                         clipped_big + dropped_whole)
 
 
-def _kept_slots(keys: torch.Tensor, invalid: int):
-    """The slots of one tier's (k, n_pad) K1 output that were kept, in
-    k-major order: (keys, column). A 4K frame's big tier can hold 2^31
-    slots, so the scan goes in passes of at most COMPACT_STEP slots."""
-    n_pad = keys.shape[1]
-    rows = max(1, COMPACT_STEP // max(n_pad, 1))
-    kept, cols = [], []
-    for k0 in range(0, keys.shape[0], rows):
-        block = keys[k0:k0 + rows].reshape(-1)
-        idx = torch.nonzero(block != invalid).squeeze(1)
-        kept.append(block[idx])
-        cols.append(idx % n_pad)
-    return torch.cat(kept), torch.cat(cols)
 
 
 def bin_gaussians(
@@ -340,25 +398,21 @@ def bin_gaussians(
                          k_big=k_big, m_mid=m_mid, k_mid=k_mid)
     n_tiles = plan.tiles_x * plan.tiles_y
     mult = plan.mult
-    kept = [(t, *_kept_slots(emit_tile_keys(t.attrs, t.rank, t.k_budget,
-                                            plan.tiles_x, n_tiles, mult),
-                             INVALID_KEY if mult else n_tiles))
-            for t in plan.tiers]
-    keys = torch.cat([k for _, k, _ in kept])
-    gauss = torch.cat([t.gauss[col] for t, _, col in kept])
+    keys, gauss, n_kept = emit_tile_pairs(plan.table, plan.offsets,
+                                          plan.n_live, plan.tiles_x, mult)
+    kept = int(n_kept)
+    keys, gauss = keys[:kept], gauss[:kept]
 
-    # 3. One sort orders the kept pairs per tile front to back. Valid keys are
-    # unique, so an unstable sort gives the same pairs as a stable one.
+    # 3. One sort orders the kept pairs per tile front to back. Kept keys are
+    # unique, so an unstable sort gives the same pairs as a stable one, in
+    # whatever order K1 wrote them.
     tile_ids = torch.arange(n_tiles + 1, dtype=torch.int64,
                             device=keys.device)
+    keys_sorted, perm = torch.sort(keys)
     if mult:
-        keys_sorted, perm = torch.sort(keys)
         queries = (tile_ids * mult).to(torch.int32)
     else:
-        # Two-key path: a lexicographic sort on (tile, rank) as one int64 key.
-        ranks = torch.cat([t.rank[col] for t, _, col in kept])
-        keys_sorted, perm = torch.sort((keys.to(torch.int64) << 31)
-                                       | ranks.to(torch.int64))
+        # Two-key path: the int64 key (tile << 31) | rank.
         queries = tile_ids << 31
     bounds = torch.searchsorted(keys_sorted, queries).to(torch.int32)
     return TileBins(

@@ -141,13 +141,17 @@ def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                   tiles_x: int):
     """K2 wrapper: (out (T, NCH, NPIX) float32, k_end (T,) int32).
 
-    ``attrs`` (N, NFEAT) float32; ``pair_gauss`` (P,) int32 with entries in
-    [0, N); ``tile_start``/``tile_count`` (T,) int32 with every tile's range
-    inside [0, P). A CPU tensor takes the plain version; a CUDA tensor
-    launches ``csrc/composite_fwd.cu``."""
+    ``attrs`` (N, NFEAT) float32, 16-byte aligned (the kernel reads its rows
+    as float4; checked on every device); ``pair_gauss`` (P,) int32 with
+    entries in [0, N); ``tile_start``/``tile_count`` (T,) int32 with every
+    tile's range inside [0, P). A CPU tensor takes the plain version; a CUDA
+    tensor launches ``csrc/composite_fwd.cu``."""
     tensors = (attrs, pair_gauss, tile_start, tile_count)
     if attrs.dim() != 2 or attrs.shape[1] != NFEAT or attrs.dtype != torch.float32:
         raise ValueError(f"attrs must be (N, {NFEAT}) float32")
+    if attrs.data_ptr() % 16:
+        raise ValueError("composite_fwd: attrs must be 16-byte aligned (the "
+                         "kernel reads its rows as float4)")
     if any(x.dtype != torch.int32 or x.dim() != 1 for x in tensors[1:]):
         raise ValueError("pair_gauss, tile_start and tile_count must be 1-D int32")
     if tile_start.shape != tile_count.shape:

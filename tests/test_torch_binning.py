@@ -76,21 +76,47 @@ def test_bin_gaussians_matches_with_tiny_budgets(kw):
         assert int(tb.overflow) > 0
 
 
-@pytest.mark.parametrize("name,kw", [
-    ("64x48", {}),
-    ("3840x2160-two-key", dict(k_small=4, m_big=16, k_big=64, m_mid=64,
-                               k_mid=16)),
-])
-def test_bin_gaussians_compaction_in_passes(name, kw, monkeypatch):
-    # a pass of 3000 slots splits every tier into several passes, as the
-    # 2^31-slot big tier of a 4K frame is split on the card
-    n, seed, pos, fwd, width, height = CASES[name]
-    proj = _case(n, seed, pos, fwd, width, height)
-    budgets = jbin.suggest_budgets(proj, width, height)
-    kw = kw or {k: budgets[k] for k in tbin.EMIT_BUDGET_KEYS}
-    monkeypatch.setattr(tbin, "COMPACT_STEP", 3000)
-    tb = tbin.bin_gaussians(_port_proj(proj), width, height, **kw)
-    _assert_bins_equal(tb, jbin.bin_gaussians(proj, width, height, **kw))
+@pytest.mark.parametrize("mode", ["fused", "two-key"])
+@pytest.mark.parametrize("kw", [
+    dict(k_small=2, m_big=4, k_big=4),                    # two tiers
+    dict(k_small=4, m_big=16, k_big=64, m_mid=64, k_mid=16),   # three tiers
+], ids=["2-tier", "3-tier"])
+def test_emit_tile_pairs_plain_matches_pallas_kept_slots(kw, mode):
+    """K1's plain version walks the live slots of every tier at once: its
+    (key, Gaussian) pairs are, as a multiset, the kept slots of the JAX
+    kernel run on each tier's padded table."""
+    width = height = 256
+    proj = _case(300, 11, [0.0, -2.0, 1.0], [0.0, 1.0, 0.0], width, height)
+    plan = tbin.emission_plan(_port_proj(proj), width, height, **kw)
+    assert len(plan.tiers) == (3 if "m_mid" in kw else 2)
+    n_tiles = plan.tiles_x * plan.tiles_y
+    mult = plan.mult if mode == "fused" else 0
+    assert plan.mult > 0
+    want_keys, want_gauss = [], []
+    for tier in plan.tiers:
+        attrs, rank, gauss = (x.numpy() for x in tbin.padded_tier(plan, tier))
+        out, n_pad = jbin._emit_fused(attrs, rank, plan.tiles_x, n_tiles, 32,
+                                      32, tier.k_budget, mult)
+        out = np.asarray(out)
+        assert n_pad == attrs.shape[1]
+        _, col = np.nonzero(out != (tbin.INVALID_KEY if mult else n_tiles))
+        key = out[out != (tbin.INVALID_KEY if mult else n_tiles)]
+        if not mult:
+            key = (key.astype(np.int64) << 31) | rank[col].astype(np.int64)
+        want_keys.append(key)
+        want_gauss.append(gauss[col])
+    want_keys = np.concatenate(want_keys)
+    want_gauss = np.concatenate(want_gauss)
+    keys, gauss, n_kept = tbin.emit_tile_pairs_plain(
+        plan.table, plan.offsets, plan.n_live, plan.tiles_x, mult)
+    assert keys.dtype == (torch.int32 if mult else torch.int64)
+    assert int(n_kept) == keys.shape[0] == gauss.shape[0] == len(want_keys) > 0
+    assert plan.n_live >= int(n_kept)
+    got = np.argsort(keys.numpy(), kind="stable")
+    want = np.argsort(want_keys, kind="stable")
+    np.testing.assert_array_equal(keys.numpy()[got], want_keys[want])
+    np.testing.assert_array_equal(gauss.numpy()[got], want_gauss[want])
+    assert len(np.unique(want_keys)) == len(want_keys)   # keys are unique
 
 
 def test_bin_gaussians_with_nothing_in_view():
@@ -153,8 +179,9 @@ def test_emit_plain_matches_pallas_kernel(fused, rng):
     want, n_pad = jbin._emit_fused(attrs, rank, tiles_x, n_tiles, 32, 32,
                                    k_budget, mult)
     assert n_pad == n
-    got = tbin.emit_tile_keys(torch.from_numpy(attrs), torch.from_numpy(rank),
-                              k_budget, tiles_x, n_tiles, mult)
+    got = tbin.emit_tile_keys_plain(torch.from_numpy(attrs),
+                                    torch.from_numpy(rank), k_budget, tiles_x,
+                                    n_tiles, mult)
     assert got.dtype == torch.int32 and got.shape == (k_budget, n)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     invalid = tbin.INVALID_KEY if fused else n_tiles
@@ -162,14 +189,25 @@ def test_emit_plain_matches_pallas_kernel(fused, rng):
 
 
 def test_emit_wrapper_checks_inputs():
-    attrs = torch.zeros((16, 8))
-    rank = torch.zeros((8,), dtype=torch.int32)
+    table = torch.zeros((8, tbin.LIVE_COLS))
+    offsets = torch.zeros((9,), dtype=torch.int64)
     with pytest.raises(ValueError):
-        tbin.emit_tile_keys(attrs[:11], rank, 4, 2, 4, 0)
+        tbin.emit_tile_pairs(table[:, :11], offsets, 0, 2, 0)
     with pytest.raises(TypeError):
-        tbin.emit_tile_keys(attrs.double(), rank, 4, 2, 4, 0)
+        tbin.emit_tile_pairs(table.double(), offsets, 0, 2, 0)
+    with pytest.raises(TypeError):
+        tbin.emit_tile_pairs(table, offsets.int(), 0, 2, 0)
     with pytest.raises(ValueError):
-        tbin.emit_tile_keys(attrs, rank[:4], 4, 2, 4, 0)
-    before = tbin.emit_tile_keys.launches
-    tbin.emit_tile_keys(attrs, rank, 4, 2, 4, 0)
-    assert tbin.emit_tile_keys.launches == before   # the plain version ran
+        tbin.emit_tile_pairs(table, offsets[:4], 0, 2, 0)
+    with pytest.raises(ValueError):
+        tbin.emit_tile_pairs(table, offsets, -1, 2, 0)
+    misaligned = torch.zeros(8 * tbin.LIVE_COLS + 1)[1:].view(8, tbin.LIVE_COLS)
+    assert misaligned.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tbin.emit_tile_pairs(misaligned, offsets, 0, 2, 0)
+    before = tbin.emit_tile_pairs.launches
+    for mult, dtype in ((1 << 20, torch.int32), (0, torch.int64)):
+        keys, gauss, n_kept = tbin.emit_tile_pairs(table, offsets, 0, 2, mult)
+        assert keys.dtype == dtype and gauss.dtype == torch.int32
+        assert keys.shape == gauss.shape == (0,) and int(n_kept) == 0
+    assert tbin.emit_tile_pairs.launches == before   # the plain version ran

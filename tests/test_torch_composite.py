@@ -208,3 +208,17 @@ def test_k2_wrapper_checks_inputs():
     assert tcu.composite_fwd.launches == before     # the plain version ran
     assert out.shape == (3, 8, 1024) and kend.tolist() == [0, 0, 0]
     assert float(out[:, 5].min()) == 1.0 and float(out[:, 7].max()) == -1.0
+
+
+def test_k2_wrapper_refuses_misaligned_attrs():
+    # the kernel reads attribute rows as float4: a table 4 bytes off a
+    # 16-byte boundary is refused on every device, before the dispatch
+    attrs = torch.zeros(4 * 16 + 1)[1:].view(4, 16)
+    assert attrs.data_ptr() % 16
+    i32 = torch.zeros((3,), dtype=torch.int32)
+    before = tcu.composite_fwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tcu.composite_fwd(attrs, i32, i32, i32, 3)
+    out, _ = tcu.composite_fwd(attrs.clone(), i32, i32, i32, 3)
+    assert tcu.composite_fwd.launches == before
+    assert out.shape == (3, 8, 1024)

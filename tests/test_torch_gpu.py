@@ -34,6 +34,13 @@ def _frame(n=20_000, width=320, height=256, seed=5):
     return scene, cam, trender.budget_kwargs(trender.autotune_all(scene, cam))
 
 
+def _sorted_pairs(keys, gauss, n_kept):
+    """The first ``n_kept`` pairs, ordered by their (unique) keys."""
+    n = int(n_kept)
+    keys, perm = torch.sort(keys[:n])
+    return keys, gauss[:n][perm]
+
+
 @pytest.mark.parametrize("width,height", [(320, 256), (3840, 2160)])
 def test_emit_kernel_matches_plain(width, height):
     _need_card("K1")
@@ -42,15 +49,15 @@ def test_emit_kernel_matches_plain(width, height):
         plan = binning.emission_plan(
             project_gaussians(scene, cam), width, height,
             **{k: bk[k] for k in binning.EMIT_BUDGET_KEYS})
-    n_tiles = plan.tiles_x * plan.tiles_y
+    args = (plan.table, plan.offsets, plan.n_live, plan.tiles_x)
     for mult in {plan.mult, 0}:
-        for t in plan.tiers:
-            want = binning.emit_tile_keys_plain(t.attrs, t.rank, t.k_budget,
-                                                plan.tiles_x, n_tiles, mult)
-            got = binning.emit_tile_keys(t.attrs, t.rank, t.k_budget,
-                                         plan.tiles_x, n_tiles, mult)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want)
+        want = _sorted_pairs(*binning.emit_tile_pairs_plain(*args, mult))
+        before = binning.emit_tile_pairs.launches
+        got = _sorted_pairs(*binning.emit_tile_pairs(*args, mult))
+        torch.cuda.synchronize()
+        assert binning.emit_tile_pairs.launches == before + 1
+        assert 0 < got[0].shape[0] <= plan.n_live
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_composite_kernel_matches_plain():
