@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render and training paths on one CUDA card, at
-full size.
+"""Drive the PyTorch port's render, training and navigation paths on one
+CUDA card, at full size.
 
     python3 chip_smoke.py
 
@@ -49,6 +49,11 @@ no result line):
      against the change measured by rendering, at the step lengths of
      ``SLOPE_STEPS`` (one of them must agree within ``SLOPE_TOL``); at
      320x256, 10 steps each with the ``cuda`` and the ``torch`` backend;
+  5d. the same 1080p/1M start through the ``torch`` backend over the chunks
+     the ``cuda`` forward walked (each tile cut at its ``k_end``: the
+     ``cuda`` backend's function): the gradients of all five trainable
+     groups must agree with the ``cuda`` ones within ``GRAD_REL`` of
+     max |torch|;
   6. times: per-stage medians over 20 runs after 3 warm-ups (CUDA events);
      the device's busy time per frame and per stage, from torch.profiler
      traces (CUDA activity only) of unsynchronized loops, and the idle share
@@ -73,7 +78,30 @@ no result line):
      production variant (early stop on, every block) bitwise against K2;
      then ``kernel_anatomy.measure``, counted from 0: the variants' times
      and registers per thread, the batch-of-4 ratio and the five deltas,
-     and the probe's bound (K2's bytes and operations over every chunk).
+     and the probe's bound (K2's bytes and operations over every chunk);
+  9. the navigation path on the 1M room of frames a and b (``navigation``):
+     9a, ``build_collision_accel(chunk=8192)`` (123 chunks) and 64 agent
+     capsules on a grid inside the walls: the dense ``capsule_query`` and the
+     pruned query must agree below the margin (hit, hit_count, nearest_id
+     equal, clearance within ``NAV_CLEAR_TOL``), on the card and against the
+     same port code on a CPU copy of the scene; the clearance's gradient
+     w.r.t. ``p0`` must be finite; ms and launches a query for B = 1 and 64;
+     9b, ``rollout`` for ``NAV_STEPS`` steps at 640x480 (the env's frame)
+     over a 200x200 wall grid, budgets from ``autotune_poses`` over 16 poses
+     (``pair_margin=1.5``), dense and pruned: overflow 0, K1 and K2 launched
+     once a step (counted from 0 around the call), positions equal, the
+     agent moves > 0.3 m; env-steps/s, the step split into render, policy
+     and physics, and collision (CUDA events over a replay of the loop),
+     device busy and idle share a step, peak memory; ``rollout_batch`` B = 4
+     in both modes, each equal to the single rollouts; K1 and K2 against
+     their plain versions, with the gates of phases 3 and 4, at the densest
+     of the 16 probe poses and at the rollout frame that walked the most
+     chunks, with the 9b budgets;
+     9c, ``run_benchmark`` with ``OraclePolicy`` over 4 GVLN episodes in
+     ``GaussianVLNEnv(map_json=...)`` at 640x480: no failure, a success, a
+     policy answer on every step, overflow 0; one episode through
+     ``ScriptedPolicyServer`` and ``make_socket_policy`` whose STOP is
+     honoured; ms a step, ``get_rgb`` and ``apply_cmd_for``, host syncs a step.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -126,6 +154,16 @@ FP32_OPS_PER_S = 67e12
 K1_OPS_PER_SLOT = 90
 K2_OPS_PER_EVAL, K2_OPS_PER_HIT = 18, 14
 K3_OPS_PER_EVAL, K3_OPS_PER_HIT = 18, 32
+
+# Phase 9, the navigation path on the 1M room.
+NAV_W, NAV_H = 640, 480  # the env's own frame (vln_env.py's defaults)
+NAV_STEPS = 100         # rollout steps (the JAX rollout's default)
+NAV_BATCH_STEPS = 25    # steps of each episode of the B = 4 batches
+NAV_RUNNER_STEPS = 80   # the runner's max_steps per episode
+NAV_MARGIN = 2.0        # the pruned query's prune_margin (its default)
+NAV_CLEAR_TOL = 1e-5    # clearance and positions: dense vs pruned, card vs CPU
+NAV_START, NAV_YAW, NAV_GOAL = [3.0, -3.0], 2.4, [-3.0, 3.0]
+NAV_STARTS = ((-3.0, -3.0), (3.0, -3.5), (-3.5, 3.0), (0.0, -1.0))  # runner
 
 FAILURES: list = []
 PROFILE_REPS = 10       # frames per torch.profiler trace
@@ -275,6 +313,545 @@ def ops_bound(n_bytes, evals, per_eval, hits, per_hit):
         "bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_k2_against_plain(scene, cam, bk, label: str) -> dict:
+    """K1 and K2 against their plain versions at one frame, on the inputs
+    ``render`` gives them with the budgets ``bk``, with the gates of frame a.
+    K1 in both key modes: the kernel writes the kept pairs in no particular
+    order and the plain version in slot order; keys are unique, so both are
+    compared sorted. K2 on the kept pairs cut to the budgets. Returns the
+    frame's projection, plan, bins, the kernels' arguments and K2's output
+    for the phases that follow."""
+    import torch
+    from sage3d_tpu_torch.ops import binning, composite_cuda
+    from sage3d_tpu_torch.ops.projection import project_gaussians
+    with torch.no_grad():
+        proj = project_gaussians(scene, cam)
+        emit_kw = {k: bk[k] for k in binning.EMIT_BUDGET_KEYS}
+        plan = binning.emission_plan(proj, cam.width, cam.height, **emit_kw)
+        bins = binning.bin_gaussians(proj, cam.width, cam.height, **emit_kw)
+
+    def sorted_pairs(keys, gauss, n_kept):
+        n = int(n_kept)
+        keys, perm = torch.sort(keys[:n])
+        return keys, gauss[:n][perm]
+
+    n_tiles = plan.tiles_x * plan.tiles_y
+    k1_args = (plan.table, plan.offsets, plan.n_live, plan.tiles_x)
+    k1_equal = True
+    for mult in (plan.mult, 0):
+        got = sorted_pairs(*binning.emit_tile_pairs(*k1_args, mult))
+        want = sorted_pairs(*binning.emit_tile_pairs_plain(*k1_args, mult))
+        torch.cuda.synchronize()
+        equal = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        k1_equal &= equal
+        print(f"K1 at {label} (mult={mult}): {plan.n_live} live slots, "
+              f"{len(got[0])} kept pairs (plain {len(want[0])}); sorted pairs "
+              f"equal: {equal}", flush=True)
+        del got, want
+    check(k1_equal, f"{label}: K1's pairs sorted by key equal the plain "
+          "version's (fused and two-key)")
+
+    attrs = composite_cuda.attribute_table(proj, scene.semantic_ids)
+    pg, start, count, _ = composite_cuda.trim_to_capacity(
+        bins, bk["pair_capacity"])
+    count = torch.clamp(count, max=bk["tile_capacity"])
+    k2_args = (attrs, pg, start, count, plan.tiles_x)
+    out_k, kend_k = composite_cuda.composite_fwd(*k2_args)
+    out_p, kend_p = composite_cuda.composite_fwd_plain(*k2_args)
+    torch.cuda.synchronize()
+    k2_err = max(float((out_k[:, ch] - out_p[:, ch]).abs().max())
+                 for ch in (0, 1, 2, 4, 5))
+    depth_ok = bool(torch.allclose(out_k[:, 3], out_p[:, 3], rtol=K2_DEPTH_TOL,
+                                   atol=K2_DEPTH_TOL))
+    sem_agree = float((out_k[:, 7] == out_p[:, 7]).float().mean())
+    kend_diff = int((kend_k != kend_p).sum())
+    print(f"K2 vs plain at {label}: max_abs rgb/alpha/trans {k2_err:.3e}, "
+          f"semantic agreement {sem_agree:.6f}, k_end differs on {kend_diff} "
+          f"of {n_tiles} tiles, sum k_end {int(kend_k.sum())}, max k_end "
+          f"{int(kend_k.max())} a tile (one block walks a tile's chunks in "
+          f"order)", flush=True)
+    check(k2_err <= K2_ATOL, f"{label}: K2 rgb/alpha/trans within {K2_ATOL}")
+    check(depth_ok, f"{label}: K2 depth_acc within rtol=atol={K2_DEPTH_TOL}")
+    check(sem_agree >= SEM_MIN, f"{label}: K2 semantic agreement >= {SEM_MIN}")
+    check(kend_diff <= KEND_MAX_DIFF * n_tiles,
+          f"{label}: K2 k_end differs on <= {KEND_MAX_DIFF:.1%} of tiles")
+    return dict(proj=proj, plan=plan, bins=bins, k1_args=k1_args,
+                k1_equal=k1_equal, attrs=attrs, k2_args=k2_args,
+                k2_err=k2_err, out_k=out_k, kend_k=kend_k)
+
+
+def nav_semantic_map() -> list:
+    """The 1M room's 2D semantic map: walls on its x = +-5 and y = +-5 m
+    walls, one table at world (3, 2.5), floor points; map bounds [-5, 5] on
+    both axes, so map and world coordinates coincide."""
+    import numpy as np
+    edge = np.round(np.linspace(-5.0, 5.0, 201), 4).tolist()
+    wall = [p for t in edge for p in ([-5.0, t], [5.0, t], [t, -5.0],
+                                      [t, 5.0])]       # [y, x] pairs
+    table = [[round(y, 2), round(x, 2)] for y in np.arange(2.0, 3.001, 0.1)
+             for x in np.arange(2.5, 3.501, 0.1)]
+    floor = [[y, x] for y in edge[::20] for x in edge[::20]]
+    return [
+        {"category_label": "Wall", "instance_id": 0, "item_id": "label_0",
+         "mask_coords_m": wall, "bbox_m": [-5.0, -5.0, 5.0, 5.0]},
+        {"category_label": "Table", "instance_id": 3, "item_id": "label_3",
+         "mask_coords_m": table, "bbox_m": [2.5, 2.0, 3.5, 3.0]},
+        {"category_label": "floor", "instance_id": 9, "item_id": "label_9",
+         "mask_coords_m": floor, "bbox_m": [-5.0, -5.0, 5.0, 5.0]},
+    ]
+
+
+def nav_episodes(tmp) -> tuple:
+    """A GVLN trajectory file of straight routes from NAV_STARTS to the table,
+    and the semantic map, written under ``tmp``; returns their paths."""
+    import math
+    from sage3d_tpu_torch.utils.transforms import world_quat_from_map_yaw
+    goal = (3.0, 2.5)
+    samples = []
+    for i, start in enumerate(NAV_STARTS):
+        pts = [(start[0] + (goal[0] - start[0]) * k / 4,
+                start[1] + (goal[1] - start[1]) * k / 4) for k in range(5)]
+        yaw = math.atan2(goal[1] - start[1], goal[0] - start[0])
+        points = [{"position": [x, y, 0.5],
+                   "rotation": list(world_quat_from_map_yaw(yaw))
+                   if k < 4 else [0.0, 0.0, 0.0, 1.0]}
+                  for k, (x, y) in enumerate(pts)]
+        samples.append({"trajectory_id": str(i), "points": points,
+                        "instructions": [{
+                            "generated_instruction":
+                                f"Walk to the table (route {i}).",
+                            "instruction_type": "AC", "start": "label_0",
+                            "end": "label_3"}]})
+    traj = tmp / "trajectories_room.json"
+    traj.write_text(json.dumps({"scenes": [{
+        "scene_id": 1, "scene_name": "room1m", "samples": samples}]}))
+    map_path = tmp / "2D_Semantic_Map_room1m_Complete.json"
+    map_path.write_text(json.dumps(nav_semantic_map()))
+    return traj, map_path
+
+
+def navigation(room, card: str) -> list:
+    """Phase 9, the navigation path on the 1M room (see the module
+    docstring). Returns K1's and K2's launches on its main-path runs, each
+    counted from 0 just before the run and read just after, and the phase's
+    peak device memory."""
+    import tempfile
+    import warnings
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from sage3d_tpu_torch.bench.episodes import adapt_gvln_to_episodes
+    from sage3d_tpu_torch.bench.runner import run_benchmark, run_episode
+    from sage3d_tpu_torch.bench.tasks import (TaskTypeManager,
+                                              adapt_episode_for_task)
+    from sage3d_tpu_torch.env.rollout import (depth_seek_policy, rollout,
+                                              rollout_batch)
+    from sage3d_tpu_torch.env.vln_env import GaussianVLNEnv
+    from sage3d_tpu_torch.ops import binning, composite_cuda
+    from sage3d_tpu_torch.ops.collision import (agent_capsule,
+                                                build_collision_accel,
+                                                capsule_query,
+                                                capsule_query_pruned)
+    from sage3d_tpu_torch.physics.agent import apply_cmd, init_agent
+    from sage3d_tpu_torch.physics.occupancy import grid_from_mask
+    from sage3d_tpu_torch.renderer.camera import (agent_camera,
+                                                  agent_camera_t,
+                                                  stack_cameras)
+    from sage3d_tpu_torch.renderer.render import (autotune_poses,
+                                                  budget_kwargs, render)
+    from sage3d_tpu_torch.renderer.scene import GaussianScene
+    from sage3d_tpu_torch.serve.policy import OraclePolicy, make_socket_policy
+    from sage3d_tpu_torch.serve.scripted_server import ScriptedPolicyServer
+
+    dev = room.device
+    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd)
+    launched = [0, 0]
+    peak = [torch.cuda.max_memory_allocated()]     # the phase's, over resets
+
+    def reset_peak() -> int:
+        """Fold the peak so far into the phase's, reset it, and return the
+        memory held now."""
+        torch.cuda.synchronize()
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def counted(fn):
+        """``fn()`` with K1's and K2's counters set to 0 just before and read
+        just after; the counts join the phase's launches."""
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = [k.launches for k in kernels]
+        launched[0] += n[0]
+        launched[1] += n[1]
+        return out, n
+
+    # 9a. collision at full size ---------------------------------------------
+    t0 = time.perf_counter()
+    accel = build_collision_accel(room, chunk=8192)
+    torch.cuda.synchronize()
+    accel_first = (time.perf_counter() - t0) * 1e3
+    accel_ms = cuda_ms(lambda: build_collision_accel(room, chunk=8192),
+                       reps=3, warmup=0)
+    n_chunks = accel.aabb_min.shape[0]
+    print(f"9a build_collision_accel(1M, chunk=8192) {card}: {n_chunks} "
+          f"chunks, first call {accel_first:.1f} ms, then {accel_ms:.2f} ms "
+          f"(median of 3, CUDA events)", flush=True)
+    check(n_chunks == 123, "9a: the 1M room's accel has 123 chunks of 8192")
+    g = np.linspace(-4.2, 4.2, 8)
+    xy = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)
+    p0, p1, r = agent_capsule(xy)
+    dense = capsule_query(room, p0, p1, r)
+    pruned = capsule_query_pruned(accel, p0, p1, r, prune_margin=NAV_MARGIN)
+
+    def agree(got, want, what, ids=True):
+        """hit and hit_count equal, clearance below the margin within
+        NAV_CLEAR_TOL, and with ``ids`` nearest_id below the margin equal
+        (across devices a near-tie of two Gaussians may order either way)."""
+        got = {k: v.cpu() for k, v in got.items()}
+        want = {k: v.cpu() for k, v in want.items()}
+        below = want["clearance"] < NAV_MARGIN
+        err = float((got["clearance"][below] - want["clearance"][below]
+                     ).abs().max()) if bool(below.any()) else 0.0
+        same = (torch.equal(got["hit"], want["hit"])
+                and torch.equal(got["hit_count"], want["hit_count"])
+                and (not ids or torch.equal(got["nearest_id"][below],
+                                            want["nearest_id"][below])))
+        print(f"9a {what}: hits {int(got['hit'].sum())}/64, hit_count "
+              f"{int(got['hit_count'].sum())}, {int(below.sum())} below the "
+              f"margin, max |clearance diff| {err:.3e}", flush=True)
+        check(same and err <= NAV_CLEAR_TOL,
+              f"9a {what}: hit, hit_count" + (" and nearest_id below the "
+                                              "margin" if ids else "")
+              + f" equal, clearance within {NAV_CLEAR_TOL}")
+
+    agree(pruned, dense, "pruned vs dense on the card")
+    cpu_room = GaussianScene(*(t.cpu() for t in room))
+    cp0, cp1 = p0.cpu(), p1.cpu()
+    dense_cpu = capsule_query(cpu_room, cp0, cp1, r, device="cpu")
+    accel_cpu = build_collision_accel(cpu_room, chunk=8192, device="cpu")
+    pruned_cpu = capsule_query_pruned(accel_cpu, cp0, cp1, r,
+                                      prune_margin=NAV_MARGIN, device="cpu")
+    agree(dense, dense_cpu, "dense, card vs CPU", ids=False)
+    agree(pruned, pruned_cpu, "pruned, card vs CPU", ids=False)
+    check(torch.equal(accel.scene.means.cpu(), accel_cpu.scene.means)
+          and torch.equal(accel.aabb_min.cpu(), accel_cpu.aabb_min),
+          "9a: the accel's Morton order and AABBs equal on the card and CPU")
+    del cpu_room, accel_cpu
+    leaf = p0.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(
+        capsule_query(room, leaf, p1, r)["clearance"].sum(), leaf)
+    check(bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0,
+          "9a: the clearance's gradient w.r.t. p0 is finite and non-zero")
+    for b in (1, 64):
+        for name, fn in (
+                ("dense", lambda: capsule_query(room, p0[:b], p1[:b], r)),
+                ("pruned", lambda: capsule_query_pruned(
+                    accel, p0[:b], p1[:b], r, prune_margin=NAV_MARGIN))):
+            ms = cuda_ms(fn, reps=10, warmup=2)
+            busy, n_ops, _ = device_busy(fn, reps=5)
+            held = reset_peak()
+            res = fn()
+            torch.cuda.synchronize()
+            q_peak = torch.cuda.max_memory_allocated() - held
+            visited = (f", chunks_visited {int(res['chunks_visited'])} of "
+                       f"{n_chunks}" if name == "pruned" else "")
+            del res
+            print(f"9a capsule query {name} B={b} {card}: {ms:.3f} ms a query "
+                  f"(CUDA events, median of 10), device busy {busy:.3f} ms, "
+                  f"{n_ops:.0f} kernels and copies a query{visited}, peak "
+                  f"device memory {q_peak / 2**20:.1f} MiB above what was "
+                  f"held", flush=True)
+
+    # 9b. rollouts -----------------------------------------------------------
+    mask = np.zeros((200, 200), np.uint8)
+    mask[:2, :] = mask[-2:, :] = 1
+    mask[:, :2] = mask[:, -2:] = 1
+    grid = grid_from_mask(mask, bounds=[-5.0, 5.0, -5.0, 5.0])
+    # 16 probe poses: the densest frames an agent in this room sees. The
+    # occupancy grid holds only the walls, so an agent walks through the
+    # room's objects: a pose at each object's centre (8), 4 close up facing
+    # a wall, and 4 anywhere inside the walls.
+    rng = np.random.default_rng(6)
+    sem = room.semantic_ids
+    poses = [((float(c[0]), float(c[1])), float(w)) for c, w in zip(
+        [room.means[sem == k].mean(0).tolist()
+         for k in range(1, int(sem.max()) + 1)],
+        rng.uniform(-np.pi, np.pi, 8))]
+    for i in range(4):
+        ang = i * np.pi / 2 + np.pi / 4
+        poses.append(((4.6 * np.cos(ang), 4.6 * np.sin(ang)), float(ang)))
+    poses += [((float(x), float(y)), float(w)) for x, y, w in zip(
+        rng.uniform(-4.0, 4.0, 4), rng.uniform(-4.0, 4.0, 4),
+        rng.uniform(-np.pi, np.pi, 4))]
+    cams = stack_cameras([agent_camera(xy_, yaw_, width=NAV_W, height=NAV_H,
+                                       device=dev) for xy_, yaw_ in poses])
+    budgets = autotune_poses(room, cams, pair_margin=1.5)
+    bk = budget_kwargs(budgets)
+    print(f"9b budgets (autotune_poses, 16 poses, pair_margin 1.5): "
+          f"{json.dumps(budgets)}", flush=True)
+    size = dict(width=NAV_W, height=NAV_H, **bk)
+    nav = dict(start_xy=NAV_START, start_yaw=NAV_YAW, goal_xy=NAV_GOAL, **size)
+    rollout(room, grid, **{**nav, "n_steps": 3})           # warm-up
+    reset_peak()
+    t0 = time.perf_counter()
+    out, n = counted(lambda: rollout(room, grid, n_steps=NAV_STEPS, **nav))
+    wall = time.perf_counter() - t0
+    roll_peak = torch.cuda.max_memory_allocated()
+    step_ms = wall * 1e3 / NAV_STEPS
+    moved = float(torch.linalg.vector_norm(
+        out["final_pos"][:2] - torch.tensor(NAV_START, device=dev)))
+    print(f"9b rollout dense, {NAV_STEPS} steps at {NAV_W}x{NAV_H} on the "
+          f"room "
+          f"{card}: {NAV_STEPS / wall:.2f} env-steps/s ({step_ms:.3f} ms a "
+          f"step), launches K1 {n[0]} K2 {n[1]}, total_overflow "
+          f"{int(out['total_overflow'])}, moved {moved:.3f} m, goal distance "
+          f"{float(out['goal_distance'][0]):.3f} -> "
+          f"{float(out['goal_distance'][-1]):.3f} m, collisions "
+          f"{int(out['total_collisions'])}, min clearance "
+          f"{float(out['min_clearance'].min()):.3f} m, peak device memory "
+          f"{roll_peak / 2**30:.2f} GiB", flush=True)
+    check(int(out["total_overflow"]) == 0, "9b: overflow 0 on every step")
+    check(n == [NAV_STEPS, NAV_STEPS], "9b: K1 and K2 launched once a step")
+    check(moved > 0.3, "9b: the agent moves more than 0.3 m")
+    check(all(bool(torch.isfinite(out[k]).all()) for k in
+              ("positions", "min_clearance", "goal_distance", "mean_depth")),
+          "9b: finite rollout metrics")
+    t0 = time.perf_counter()
+    out_p, n_p = counted(lambda: rollout(room, grid, n_steps=NAV_STEPS,
+                                         collision_accel=accel,
+                                         prune_margin=NAV_MARGIN, **nav))
+    wall_p = time.perf_counter() - t0
+    dc, pc = out["min_clearance"], out_p["min_clearance"]
+    below = dc < NAV_MARGIN
+    pos_err = float((out_p["positions"] - out["positions"]).abs().max())
+    clear_err = float((pc[below] - dc[below]).abs().max()) \
+        if bool(below.any()) else 0.0
+    print(f"9b rollout pruned {card}: {NAV_STEPS / wall_p:.2f} env-steps/s "
+          f"({wall_p * 1e3 / NAV_STEPS:.3f} ms a step), launches K1 {n_p[0]} "
+          f"K2 {n_p[1]}, positions "
+          f"max |diff| {pos_err:.3e}, clearance below the margin max |diff| "
+          f"{clear_err:.3e} ({int(below.sum())} steps)", flush=True)
+    check(pos_err <= NAV_CLEAR_TOL and clear_err <= NAV_CLEAR_TOL
+          and int(out_p["total_overflow"]) == 0,
+          "9b: pruned rollout's positions and clearance equal the dense "
+          f"one's within {NAV_CLEAR_TOL}, overflow 0")
+
+    # Where a step's time goes: the rollout's loop replayed with CUDA events
+    # between its stages (its positions must be the rollout's).
+    spans = {"render": [], "policy and physics": [], "collision dense": [],
+             "collision pruned": []}
+    walked = []     # a frame's sum of k_end: the chunks K2 walked
+    st = init_agent([*NAV_START, 0.5], NAV_YAW)
+    goal = torch.tensor(NAV_GOAL, device=dev)
+    same = True
+    with torch.no_grad():
+        for i in range(NAV_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            pose = (st.pos[:2].clone(), st.yaw.clone())
+            ev[0].record()
+            frame = render(room, agent_camera_t(st.pos[:2], st.yaw,
+                                                width=NAV_W, height=NAV_H),
+                           **bk)
+            ev[1].record()
+            vx, wr = depth_seek_policy(frame["depth"], st.pos[:2], st.yaw,
+                                       goal)
+            st = apply_cmd(st, grid, vx, 0.0, wr, 1.0)
+            ev[2].record()
+            q0, q1, qr = agent_capsule(st.pos[None, :2])
+            capsule_query(room, q0, q1, qr)
+            ev[3].record()
+            capsule_query_pruned(accel, q0, q1, qr, prune_margin=NAV_MARGIN)
+            ev[4].record()
+            ev[4].synchronize()
+            for k, (a, b) in zip(spans, zip(ev, ev[1:])):
+                spans[k].append(a.elapsed_time(b))
+            n_walk = int(frame["grad_chunks"])
+            if n_walk > max(walked, default=-1):
+                densest = (i, pose)
+            walked.append(n_walk)
+            same &= torch.equal(st.pos, out["positions"][i])
+    med = {k: statistics.median(v) for k, v in spans.items()}
+    print(f"9b step split {card} (CUDA events, median of {NAV_STEPS} "
+          f"replayed steps): " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in med.items())
+          + f"; K2 walked {statistics.median(walked):.0f} chunks a frame "
+          f"(median; {min(walked)}-{max(walked)}) over "
+          f"{-(-NAV_W // 32) * -(-NAV_H // 32)} tiles", flush=True)
+    check(same, "9b: the timed replay follows the rollout's positions")
+    busy, n_ops, top = device_busy(
+        lambda: rollout(room, grid, **{**nav, "n_steps": 10}), reps=1)
+    print(f"9b device {card}: busy {busy / 10:.3f} ms a dense rollout step "
+          f"of {step_ms:.3f} ms, idle share {1.0 - busy / 10 / step_ms:.3f}; "
+          f"{n_ops / 10:.0f} kernels and copies a step (torch.profiler, CUDA "
+          f"activity only, one unsynchronized 10-step rollout)", flush=True)
+    for kname, kms, kn in top:
+        print(f"  top kernel rollout: {kms / 10:.3f} ms, {kn / 10:g} launches "
+              f"a step: {kname}", flush=True)
+
+    starts = np.array([NAV_START, [-3.0, -3.0], [3.0, 3.0], [0.0, -4.0]],
+                      np.float32)
+    yaws = np.array([NAV_YAW, 0.8, -2.4, 1.57], np.float32)
+    goals = np.array([NAV_GOAL, [3.0, 3.0], [-3.0, -3.0], [0.0, 4.0]],
+                     np.float32)
+    kw = dict(n_steps=NAV_BATCH_STEPS, **size)
+    singles = [counted(lambda: rollout(room, grid, starts[b], yaws[b],
+                                       goals[b], **kw))[0] for b in range(4)]
+    # Both modes run the episodes one after another; each is held against
+    # the single rollouts, so the two equal each other too.
+    for mode in ("vmap", "map"):
+        batch, n_b = counted(lambda: rollout_batch(
+            room, grid, starts, yaws, goals, batch_mode=mode, **kw))
+        worst, bitwise = 0.0, True
+        for key, v in batch.items():
+            other = torch.stack([s_[key] for s_ in singles])
+            bitwise &= torch.equal(v, other)
+            worst = max(worst, float((v.double() - other.double()
+                                      ).abs().max()))
+        print(f"9b rollout_batch {mode} B=4, {NAV_BATCH_STEPS} steps: "
+              f"launches K1 {n_b[0]} K2 {n_b[1]}, total_overflow per episode "
+              f"{batch['total_overflow'].tolist()}, vs the single rollouts "
+              f"max |diff| {worst:.3e}, bitwise {bitwise}", flush=True)
+        check(n_b == [4 * NAV_BATCH_STEPS] * 2
+              and int(batch["total_overflow"].sum()) == 0
+              and worst <= NAV_CLEAR_TOL,
+              f"9b rollout_batch {mode}: K1 and K2 once a step, overflow 0, "
+              "equal to the single rollouts")
+
+    # K1 and K2 against their plain versions at this path's own shapes and
+    # budgets: the densest probe pose (the most chunks walked) and the
+    # rollout frame that walked the most.
+    with torch.no_grad():
+        walked_probe = [int(render(room, agent_camera(
+            xy_, yaw_, width=NAV_W, height=NAV_H, device=dev),
+            **bk)["grad_chunks"]) for xy_, yaw_ in poses]
+    i_probe = int(np.argmax(walked_probe))
+    xy_, yaw_ = poses[i_probe]
+    print(f"9b chunks walked per probe pose: {walked_probe}", flush=True)
+    k1_k2_against_plain(room, agent_camera(xy_, yaw_, width=NAV_W,
+                                           height=NAV_H, device=dev), bk,
+                        f"9b probe pose {i_probe} ({xy_[0]:.2f}, "
+                        f"{xy_[1]:.2f}, yaw {yaw_:.2f})")
+    k1_k2_against_plain(room, agent_camera_t(*densest[1], width=NAV_W,
+                                             height=NAV_H), bk,
+                        f"9b rollout step {densest[0]}")
+
+    # 9c. the benchmark runner -----------------------------------------------
+    have = {}
+    for mod in ("PIL", "matplotlib", "requests"):
+        try:
+            __import__(mod)
+            have[mod] = True
+        except ImportError:
+            have[mod] = False
+    print(f"9c packages: {json.dumps(have)}", flush=True)
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_nav_")
+    tmp = Path(tmpdir.name)
+    traj, map_path = nav_episodes(tmp)
+    episodes = adapt_gvln_to_episodes(traj, "room1m.ply")
+    env = GaussianVLNEnv(room, map_json=str(map_path), width=NAV_W,
+                         height=NAV_H, budgets=budgets)
+
+    def instruction_of(ep):
+        task_type = TaskTypeManager.infer_task_type(ep)
+        return TaskTypeManager.create_task(task_type, {}).get_instruction(
+            adapt_episode_for_task(ep, task_type))
+
+    oracles = {instruction_of(ep): OraclePolicy(env, ep) for ep in episodes}
+    answers = {k: 0 for k in oracles}
+
+    def policy(images, instruction, current_yaw=0.0, depth_images=None,
+               **kw_):
+        resp = oracles[instruction](images=images, instruction=instruction,
+                                    current_yaw=current_yaw,
+                                    depth_images=depth_images)
+        answers[instruction] += 1
+        return resp
+
+    spent = {"get_rgb": 0.0, "apply_cmd_for": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            res = fn(*a, **k)
+            spent[name] += time.perf_counter() - t
+            return res
+        return run
+
+    env.get_rgb = timed("get_rgb", env.get_rgb)
+    env.apply_cmd_for = timed("apply_cmd_for", env.apply_cmd_for)
+    out_dir = tmp / "runs"
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            summary, n_r = counted(lambda: run_benchmark(
+                env, episodes, policy, output_dir=str(out_dir),
+                max_steps=NAV_RUNNER_STEPS))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    wall = time.perf_counter() - t0
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    steps = {}
+    for ep in episodes:
+        eid = ep["episode_id"]
+        rec = json.loads((out_dir / ep["scene_name"] / eid / "measurements"
+                          / f"{eid}.json").read_text()) \
+            if (out_dir / ep["scene_name"] / eid).exists() else None
+        steps[eid] = (rec["episode_info"]["steps_run"] if rec else None,
+                      answers[instruction_of(ep)])
+    n_steps = sum(s for s, _ in steps.values() if s)
+    print(f"9c run_benchmark, OraclePolicy, {len(episodes)} episodes at "
+          f"{NAV_W}x{NAV_H} on the 1M room {card}: {json.dumps(summary)}",
+          flush=True)
+    print(f"9c steps_run and policy answers per episode: {json.dumps(steps)};"
+          f" launches K1 {n_r[0]} K2 {n_r[1]}; env total_overflow "
+          f"{int(env.total_overflow)}", flush=True)
+    if n_steps:
+        print(f"9c per env step {card}: {wall * 1e3 / n_steps:.3f} ms wall, "
+              f"get_rgb {spent['get_rgb'] * 1e3 / n_steps:.3f} ms, "
+              f"apply_cmd_for {spent['apply_cmd_for'] * 1e3 / n_steps:.3f} ms "
+              f"(host clock; apply_cmd_for only queues its work), "
+              f"{syncs / n_steps:.2f} host syncs a step "
+              f"(torch.cuda.set_sync_debug_mode), {n_steps} steps",
+              flush=True)
+    check(summary["num_failures"] == 0 and summary["num_episodes"] == 4,
+          "9c: the runner ran the 4 episodes without a failure")
+    check(summary["num_success"] >= 1, "9c: at least one success")
+    check(all(s is not None and s == a for s, a in steps.values()),
+          "9c: the policy answered on every runner step (no fallback)")
+    check(int(env.total_overflow) == 0, "9c: the env's frames overflow 0")
+    check(n_r[0] == n_r[1] == n_steps, "9c: K1 and K2 once a frame")
+
+    scripted = {"answers": 0}
+    with ScriptedPolicyServer(script=["MOVE_FORWARD", "TURN_LEFT",
+                                      "MOVE_FORWARD", "STOP"]) as srv:
+        sock = make_socket_policy(host="127.0.0.1", port=srv.port)
+
+        def socket_policy(**kw_):
+            resp = sock(**kw_)
+            scripted["answers"] += 1
+            return resp
+
+        rec, n_s = counted(lambda: run_episode(env, episodes[0],
+                                               socket_policy, max_steps=10))
+    info = rec["episode_info"]
+    print(f"9c scripted socket server: steps_run {info['steps_run']}, "
+          f"stop_called {info['stop_called']}, answers "
+          f"{scripted['answers']}, launches K1 {n_s[0]} K2 {n_s[1]}",
+          flush=True)
+    check(info["stop_called"] and info["steps_run"] == 4
+          and scripted["answers"] == 4,
+          "9c: the scripted server's STOP is honoured on step 4")
+    tmpdir.cleanup()
+    reset_peak()
+    return launched, peak[0]
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -287,6 +864,7 @@ def main() -> int:
     from sage3d_tpu_torch.benchmarks import bench, kernel_anatomy
     from sage3d_tpu_torch.benchmarks._util import nvidia_smi_line
     from sage3d_tpu_torch.ops import _build, binning, composite_cuda, segreduce
+    from sage3d_tpu_torch.ops.composite_torch import composite_tiles
     from sage3d_tpu_torch.ops.projection import project_gaussians
     from sage3d_tpu_torch.parallel import train
     from sage3d_tpu_torch.renderer.camera import make_camera, stack_cameras
@@ -322,35 +900,15 @@ def main() -> int:
 
     scene_a, cam_a = frames["a_1080p_1M"]
     bk_a = budget_kwargs(budgets["a_1080p_1M"])
-    with torch.no_grad():
-        proj_a = project_gaussians(scene_a, cam_a)
-        emit_kw = {k: bk_a[k] for k in binning.EMIT_BUDGET_KEYS}
-        plan = binning.emission_plan(proj_a, cam_a.width, cam_a.height,
-                                     **emit_kw)
-        bins_a = binning.bin_gaussians(proj_a, cam_a.width, cam_a.height,
-                                       **emit_kw)
 
-    # 3. K1 against its plain version -----------------------------------------
-    # The kernel writes the kept pairs in no particular order and the plain
-    # version in slot order; keys are unique, so both are compared sorted.
-    def sorted_pairs(keys, gauss, n_kept):
-        n = int(n_kept)
-        keys, perm = torch.sort(keys[:n])
-        return keys, gauss[:n][perm]
-
+    # 3, 4. K1 and K2 against their plain versions at frame a ----------------
+    fa = k1_k2_against_plain(scene_a, cam_a, bk_a, "frame a")
+    plan, bins_a = fa["plan"], fa["bins"]
+    k1_args, k1_equal = fa["k1_args"], fa["k1_equal"]
+    attrs_a, k2_args, k2_err = fa["attrs"], fa["k2_args"], fa["k2_err"]
+    pg, start, count = k2_args[1:4]
+    out_k, kend_k = fa["out_k"], fa["kend_k"]
     n_tiles_a = plan.tiles_x * plan.tiles_y
-    k1_args = (plan.table, plan.offsets, plan.n_live, plan.tiles_x)
-    k1_equal = True
-    for mult in (plan.mult, 0):
-        got = sorted_pairs(*binning.emit_tile_pairs(*k1_args, mult))
-        want = sorted_pairs(*binning.emit_tile_pairs_plain(*k1_args, mult))
-        torch.cuda.synchronize()
-        equal = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
-        k1_equal &= equal
-        print(f"K1 at frame a (mult={mult}): {plan.n_live} live slots, "
-              f"{len(got[0])} kept pairs (plain {len(want[0])}); sorted pairs "
-              f"equal: {equal}", flush=True)
-        del got, want
 
     def padded_slots(tier):   # the JAX kernel's padded emission: n_pad columns
         m = tier.gauss.shape[0]
@@ -362,34 +920,6 @@ def main() -> int:
           f"(the padded emission's), {plan.n_live} live, "
           f"{int(bins_a.n_pairs)} kept", flush=True)
     check(plan.mult > 0, "frame a takes the fused-key path")
-    check(k1_equal, "K1's pairs sorted by key equal the plain version's "
-          "(fused and two-key)")
-
-    # 4. K2 against its plain version -----------------------------------------
-    attrs_a = composite_cuda.attribute_table(proj_a, scene_a.semantic_ids)
-    pg, start, count, _ = composite_cuda.trim_to_capacity(
-        bins_a, bk_a["pair_capacity"])
-    count = torch.clamp(count, max=bk_a["tile_capacity"])
-    k2_args = (attrs_a, pg, start, count, plan.tiles_x)
-    out_k, kend_k = composite_cuda.composite_fwd(*k2_args)
-    out_p, kend_p = composite_cuda.composite_fwd_plain(*k2_args)
-    torch.cuda.synchronize()
-    k2_err = max(float((out_k[:, ch] - out_p[:, ch]).abs().max())
-                 for ch in (0, 1, 2, 4, 5))
-    depth_ok = bool(torch.allclose(out_k[:, 3], out_p[:, 3], rtol=K2_DEPTH_TOL,
-                                   atol=K2_DEPTH_TOL))
-    sem_agree = float((out_k[:, 7] == out_p[:, 7]).float().mean())
-    kend_diff = int((kend_k != kend_p).sum())
-    print(f"K2 vs plain: max_abs rgb/alpha/trans {k2_err:.3e}, semantic "
-          f"agreement {sem_agree:.6f}, k_end differs on {kend_diff} of "
-          f"{n_tiles_a} tiles, sum k_end {int(kend_k.sum())}, max k_end "
-          f"{int(kend_k.max())} (one block walks a tile's chunks in order)",
-          flush=True)
-    check(k2_err <= K2_ATOL, f"K2 rgb/alpha/trans within {K2_ATOL}")
-    check(depth_ok, f"K2 depth_acc within rtol=atol={K2_DEPTH_TOL}")
-    check(sem_agree >= SEM_MIN, f"K2 semantic agreement >= {SEM_MIN}")
-    check(kend_diff <= KEND_MAX_DIFF * n_tiles_a,
-          f"K2 k_end differs on <= {KEND_MAX_DIFF:.1%} of tiles")
     probe_a = kernel_anatomy.make_variant(
         n_tiles_a, plan.tiles_x,
         **kernel_anatomy.VARIANTS[kernel_anatomy.PRODUCTION])(*k2_args[:4])
@@ -398,7 +928,7 @@ def main() -> int:
           f"{int((probe_a != out_k).sum())} values differ", flush=True)
     check(torch.equal(probe_a, out_k),
           "probe, early stop on, all blocks: bitwise equal to K2 at frame a")
-    del probe_a, out_p
+    del probe_a
 
     # 4b. K3 against its plain version ----------------------------------------
     c_cap_a = int(budgets_train["grad_capacity"])
@@ -681,7 +1211,8 @@ def main() -> int:
 
     def slope_ratios(start, cam, tgt, backend, bk):
         """Per group, the loss change measured by rendering over its
-        first-order prediction, at each step length of SLOPE_STEPS."""
+        first-order prediction, at each step length of SLOPE_STEPS; and the
+        gradients."""
         def loss_of(params):
             out = render(start._replace(**params), cam, backend=backend, **bk)
             return torch.sum((out["rgb"] - tgt[0]) ** 2) / tgt[0].numel()
@@ -702,13 +1233,13 @@ def main() -> int:
                     moved[k] = moved[k] - eta * g
                     ratios[k].append((float(loss_of(moved)) - base)
                                      / (-share * base))
-        return ratios
+        return ratios, {k: leaves[k].grad for k in TRAINABLE}
 
     def fmt_ratios(ratios):
         return "; ".join(f"{k} " + ", ".join(f"{r:.4f}" for r in rs)
                          for k, rs in ratios.items())
 
-    slopes = slope_ratios(sh_start, cam_a, target, "cuda", bk_t)
+    slopes, grads_full = slope_ratios(sh_start, cam_a, target, "cuda", bk_t)
     print(f"start SH noise 0.1, 1080p/1M, cuda: measured / first-order loss "
           f"change along -grad at step lengths {SLOPE_STEPS}: "
           f"{fmt_ratios(slopes)}", flush=True)
@@ -716,6 +1247,52 @@ def main() -> int:
               for rs in slopes.values()),
           f"1080p/1M: every group's loss change within {SLOPE_TOL} of its "
           "gradient's first-order prediction at one step length")
+
+    # 5d. the same start through the torch backend at 1080p/1M ------------------
+    # The torch backend walks every chunk of a tile; the cuda forward stops a
+    # tile once its max T <= 1e-4 (K2's contract, as the JAX Pallas kernel's),
+    # so at a frame this dense the two are different functions of the scene.
+    # The torch backend over the chunks the cuda forward walked (each tile's
+    # pairs cut at its k_end chunks) is the cuda backend's function: there
+    # the gradients of all five groups must agree.
+    t0 = time.perf_counter()
+    ekw_t = {k: bk_t[k] for k in binning.EMIT_BUDGET_KEYS}
+    with torch.no_grad():
+        proj_s = project_gaussians(sh_start, cam_a)
+        bins_s = binning.bin_gaussians(proj_s, cam_a.width, cam_a.height,
+                                       **ekw_t)
+        pg_s, start_s, count_s, _ = cc.trim_to_capacity(
+            bins_s, bk_t["pair_capacity"])
+        _, kend_s = cc.composite_fwd(
+            cc.attribute_table(proj_s, sh_start.semantic_ids), pg_s, start_s,
+            torch.clamp(count_s, max=bk_t["tile_capacity"]), bins_s.tiles_x)
+    leaves = {k: getattr(sh_start, k).clone().requires_grad_()
+              for k in TRAINABLE}
+    walk_scene = sh_start._replace(**leaves)
+    proj_w = project_gaussians(walk_scene, cam_a)
+    bins_w = binning.bin_gaussians(proj_w, cam_a.width, cam_a.height, **ekw_t)
+    cut = bins_w._replace(tile_count=torch.minimum(
+        bins_w.tile_count, kend_s.to(bins_w.tile_count.dtype) * cc.CHUNK))
+    rgb_w = composite_tiles(proj_w, walk_scene.semantic_ids, cut,
+                            cam_a.width, cam_a.height,
+                            tile_capacity=bk_t["tile_capacity"])["rgb"]
+    (torch.sum((rgb_w - target[0]) ** 2) / target[0].numel()).backward()
+
+    def rel(got, ref):
+        return {k: float((got[k] - ref[k]).abs().max())
+                / max(float(ref[k].abs().max()), 1e-30) for k in TRAINABLE}
+
+    rel_walk = rel(grads_full, {k: leaves[k].grad for k in TRAINABLE})
+    print(f"5d start SH noise 0.1, 1080p/1M {card}: cuda vs torch gradients "
+          f"over the chunks the cuda forward walked (sum k_end "
+          f"{int(kend_s.sum())}), max_abs / max|torch| per group "
+          f"{json.dumps(rel_walk)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(max(rel_walk.values()) <= GRAD_REL,
+          f"1080p/1M: cuda gradients of all five groups within {GRAD_REL} "
+          "of the torch backend's over the same chunks")
+    print(f"peak device memory after 5d {card}: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     bk_g = budget_kwargs(autotune_all(g_scene, g_cam, pair_margin=1.5,
                                       grad_margin=1.5))
@@ -732,7 +1309,7 @@ def main() -> int:
     # taken: a departure from 1 that both backends show belongs to the render
     # (its cutoffs), not to the cuda backward.
     for backend in ("cuda", "torch"):
-        ratios = slope_ratios(g_start, g_cam, g_target, backend, bk_g)
+        ratios, _ = slope_ratios(g_start, g_cam, g_target, backend, bk_g)
         print(f"start SH noise 0.1, 320x256/20k, {backend}: measured / "
               f"first-order loss change along -grad: {fmt_ratios(ratios)}",
               flush=True)
@@ -1045,7 +1622,15 @@ def main() -> int:
           f"{n_tb} tiles, K2 walks {k2_bench_walk:.0f} pairs "
           f"(sum k_end {int(k2_kend.sum())})", flush=True)
     check(probe_launches > 0, "the anatomy run launched the probe kernel")
+
+    # 9. the navigation path --------------------------------------------------------
     script_peak = max(script_peak, torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()
+    launches_nav, nav_peak = navigation(frames["a_1080p_1M"][0], card)
+    print(f"navigation phase {card}: {time.perf_counter() - t0:.1f} s, "
+          f"launches K1 {launches_nav[0]} K2 {launches_nav[1]}, peak device "
+          f"memory {nav_peak / 2**30:.2f} GiB", flush=True)
+    script_peak = max(script_peak, nav_peak)
     print(f"peak device memory {card}: {script_peak / 2**30:.2f} GiB for the "
           f"script, {peak_b / 2**30:.2f} GiB at frame b's render", flush=True)
 
@@ -1054,7 +1639,7 @@ def main() -> int:
          "source": "sage3d_tpu_torch/csrc/emit.cu",
          "replaces": "sage3d_tpu/ops/binning.py:153",
          "launches": launches["emit"] + launches_train["emit"]
-         + launches_bench["emit"],
+         + launches_bench["emit"] + launches_nav[0],
          "max_abs_err": 0.0 if k1_equal else None,
          "ms": k1_ms, "back_to_back_ms": dev_ms["K1"],
          "host_ms": host_ms["K1"],
@@ -1064,7 +1649,8 @@ def main() -> int:
          "source": "sage3d_tpu_torch/csrc/composite_fwd.cu",
          "replaces": "sage3d_tpu/ops/composite_pallas.py:156",
          "launches": launches["composite_fwd"]
-         + launches_train["composite_fwd"] + launches_bench["composite_fwd"],
+         + launches_train["composite_fwd"] + launches_bench["composite_fwd"]
+         + launches_nav[1],
          "max_abs_err": k2_err,
          "ms": k2_ms, "back_to_back_ms": dev_ms["K2"],
          "host_ms": host_ms["K2"],

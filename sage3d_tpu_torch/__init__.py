@@ -7,9 +7,12 @@ It holds the differentiable render path: scene and camera, projection,
 binning (kernel K1, ``csrc/emit.cu``), the tile compositor (kernel K2,
 ``csrc/composite_fwd.cu``) and its analytic backward (kernels K3,
 ``csrc/composite_bwd.cu``, and K4, ``csrc/segreduce.cu``); single-device
-scene training (``parallel/``: train step, checkpoints, ``fit_scene``); and
-its measurement scripts (``benchmarks/``: the fwd+bwd bench and the K2
-anatomy probe, kernel ``csrc/composite_anatomy.cu``).
+scene training (``parallel/``: train step, checkpoints, ``fit_scene``); the
+closed-loop navigation path (``ops/collision.py`` capsule queries,
+``physics/`` occupancy grid and agent, ``env/`` the VLN env and rollouts,
+``bench/`` the SAGE-Bench runner with its tasks and measures, ``serve/`` the
+policy wire protocol); and its measurement scripts (``benchmarks/``: the
+fwd+bwd bench and the K2 anatomy probe, kernel ``csrc/composite_anatomy.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

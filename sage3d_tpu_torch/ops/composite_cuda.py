@@ -501,7 +501,7 @@ def composite_tiles_cuda(
     attrs = attribute_table(proj, semantic_ids)
     out, kend = attr_composite(attrs, pair_gauss_t, tile_start_t, count_c,
                                tiles_x, c_cap, mode)
-    grad_chunks = torch.sum(kend)
+    grad_chunks = torch.sum(kend, dtype=torch.int32)
     grad_overflow = torch.clamp(grad_chunks - c_cap, min=0) * CHUNK
 
     imgs = _untile(out.transpose(1, 2), tiles_x, tiles_y, width, height)

@@ -226,7 +226,7 @@ def render(
         "rgb_acc": out["rgb"],
         "overflow": overflow,
         "grad_chunks": (grad_chunks if grad_chunks is not None
-                        else torch.zeros((), dtype=torch.int64, device=dev)),
+                        else torch.zeros((), dtype=torch.int32, device=dev)),
     }
 
 

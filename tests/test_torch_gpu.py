@@ -301,3 +301,61 @@ def test_cuda_backend_gradients_match_torch_backend():
         ref = grads["torch"][k]
         err = float((grads["cuda"][k] - ref).abs().max())
         assert err <= 5e-4 * float(ref.abs().max()), k
+
+
+def _need_card_for(what: str):
+    if not torch.cuda.is_available():
+        pytest.skip(f"needs a CUDA device: {what} runs on the card")
+
+
+def test_capsule_query_on_the_card_matches_cpu():
+    from sage3d_tpu_torch.ops import collision
+    _need_card_for("the capsule query")
+    xy = np.stack(np.meshgrid(np.linspace(-4, 4, 4), np.linspace(-4, 4, 4)),
+                  -1).reshape(-1, 2)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        scene = synthetic_room(20_000, seed=3, device=dev)
+        p0, p1, r = collision.agent_capsule(xy, device=dev)
+        dense = collision.capsule_query(scene, p0, p1, r, chunk=4096,
+                                        device=dev)
+        accel = collision.build_collision_accel(scene, chunk=1024, device=dev)
+        pruned = collision.capsule_query_pruned(accel, p0, p1, r, device=dev)
+        outs[dev] = {k: {q: v.cpu() for q, v in o.items()}
+                     for k, o in (("dense", dense), ("pruned", pruned))}
+    for kind in ("dense", "pruned"):
+        got, want = outs["cuda"][kind], outs["cpu"][kind]
+        for k in ("hit", "hit_count", "nearest_id"):
+            assert torch.equal(got[k], want[k]), (kind, k)
+        torch.testing.assert_close(got["clearance"], want["clearance"],
+                                   rtol=1e-5, atol=1e-5)
+    assert int(outs["cuda"]["pruned"]["chunks_visited"]) == \
+        int(outs["cpu"]["pruned"]["chunks_visited"])
+
+
+def test_rollout_on_the_card_matches_cpu():
+    from sage3d_tpu_torch.env.rollout import rollout
+    from sage3d_tpu_torch.physics.occupancy import grid_from_mask
+    _need_card_for("the rollout (K1, K2)")
+    mask = np.zeros((200, 200), np.uint8)
+    mask[:2], mask[-2:], mask[:, :2], mask[:, -2:] = 1, 1, 1, 1
+    kw = dict(start_xy=[2.0, 2.0], start_yaw=0.0, goal_xy=[-2.0, -2.0],
+              n_steps=10, width=160, height=120, pair_capacity=1 << 19,
+              tile_capacity=1 << 14, backend="cuda")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        scene = synthetic_room(20_000, seed=13, device=dev)
+        grid = grid_from_mask(mask, bounds=[-5.0, 5.0, -5.0, 5.0], device=dev)
+        before = binning.emit_tile_pairs.launches
+        outs[dev] = {k: v.cpu() for k, v in
+                     rollout(scene, grid, device=dev, **kw).items()}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert binning.emit_tile_pairs.launches == before + 10
+    got, want = outs["cuda"], outs["cpu"]
+    assert int(got["total_overflow"]) == int(want["total_overflow"]) == 0
+    assert int(got["total_collisions"]) == int(want["total_collisions"])
+    for k in ("positions", "goal_distance", "min_clearance"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got["mean_depth"], want["mean_depth"],
+                               rtol=1e-4, atol=1e-4)

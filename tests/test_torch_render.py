@@ -55,6 +55,7 @@ def test_render_matches_jax_backend(backend, scenes, cams):
         got = trender.render(ts, tc, backend=backend, **kw)
     assert int(got["overflow"]) == int(want["overflow"]) == 0
     assert int(got["grad_chunks"]) == int(want["grad_chunks"])
+    assert got["grad_chunks"].dtype == got["overflow"].dtype == torch.int32
     for k in ("rgb", "alpha", "trans", "rgb_acc"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
