@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render, training and navigation paths on one
-CUDA card, at full size.
+"""Drive the PyTorch port's render, training, navigation and data paths on
+one CUDA card, at full size.
 
     python3 chip_smoke.py
 
@@ -101,7 +101,29 @@ no result line):
      ``GaussianVLNEnv(map_json=...)`` at 640x480: no failure, a success, a
      policy answer on every step, overflow 0; one episode through
      ``ScriptedPolicyServer`` and ``make_socket_policy`` whose STOP is
-     honoured; ms a step, ``get_rgb`` and ``apply_cmd_for``, host syncs a step.
+     honoured; ms a step, ``get_rgb`` and ``apply_cmd_for``, host syncs a step;
+ 10. the SAGE-Bench data path (``data_path``): 10a, the wavefront planner
+     (``sage3d_tpu_torch.benchmarks.planner_bench``) on its 240x240 indoor
+     grid and at 400x400 (a 20x20 m apartment at 0.05 m/px), 64 pairs each:
+     reachability equal to host A*'s and path lengths within max(2, 2%), the
+     card's distance fields bitwise the CPU's; pairs/s, ms, relaxations,
+     launches, host syncs and device busy a batch of 16, and the bytes bound
+     of its relaxations; 10b, ``process_scene`` with ``MockLLMClient`` on a
+     semantic map of the 1M room (its walls, its 8 objects as 0.8 m
+     squares): the batched planner runs, every point lies on a free cell;
+     trajectories/s and the planner's share; 10c, ``transform_2d3d``, merge,
+     ``actions``, ``generate_scene_images`` at 1024x768 over 8 trajectories
+     with ``autotune_poses`` budgets over every waypoint camera, and the
+     NaVILA set: overflow 0, K1 and K2 once a frame, a batch of ``cuda``
+     frames within ``BACKEND_ATOL`` of the ``torch`` backend's, K1 and K2
+     against their plain versions at the densest waypoint frame; frames/s,
+     Mpix/s, a frame's split (render, uint8 and copy, JPEG), device busy;
+     10d, ``run_batch_benchmark`` on one env over bundles of the 1M room and
+     the 200k room (``build_scene_bundle``, labels from the 8 objects'
+     boxes), 5 oracle episodes a scene (4 routes and a Goal-less one), each
+     scene with its own ``autotune_poses`` budgets: every step answered,
+     overflow 0 on both scenes, the 13 measures in both files' results; ms an
+     env step per scene and each hot swap's ``load_scene`` time.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -164,6 +186,21 @@ NAV_MARGIN = 2.0        # the pruned query's prune_margin (its default)
 NAV_CLEAR_TOL = 1e-5    # clearance and positions: dense vs pruned, card vs CPU
 NAV_START, NAV_YAW, NAV_GOAL = [3.0, -3.0], 2.4, [-3.0, 3.0]
 NAV_STARTS = ((-3.0, -3.0), (3.0, -3.5), (-3.5, 3.0), (0.0, -1.0))  # runner
+
+# Phase 10, the SAGE-Bench data path on the 1M room.
+PLANNER_GRIDS = ((240, 64, 64), (400, 64, 16))  # grid side, pairs, of them
+                        # also planned by host A* (~0.8 s a pair at 400)
+BATCH_PLAN = 16         # plan_many's sources a wavefront (its default)
+DATA_W, DATA_H = 1024, 768  # the waypoint frame (images.py's)
+DATA_BATCH = 8          # generate_scene_images' batch_size (its default)
+DATA_TRAJS = 8          # trajectories rendered to waypoint images
+DATA_LABELS = ("table", "sofa", "wardrobe", "plant", "chair", "lamp", "tv",
+               "refrigerator")  # the 8 objects' categories
+MEASURES = {"distance_to_goal", "success", "oracle_success", "path_length",
+            "spl", "navigation_error", "collision_count",
+            "continuous_success_ratio", "integrated_collision_penalty",
+            "path_smoothness", "episode_time", "explored_areas",
+            "exploration_coverage"}
 
 FAILURES: list = []
 PROFILE_REPS = 10       # frames per torch.profiler trace
@@ -265,6 +302,20 @@ def device_busy(fn, reps: int = PROFILE_REPS, n_top: int = 6):
            for e in sorted(evts, key=us, reverse=True)[:n_top]]
     return (sum(us(e) for e in evts) / 1e3 / reps,
             sum(e.count for e in evts) / reps, top)
+
+
+def counting_syncs(fn):
+    """``fn()`` and the host syncs it made (torch.cuda.set_sync_debug_mode)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
 def walked_pairs(pg, start, count, chunks):
@@ -401,9 +452,13 @@ def nav_semantic_map() -> list:
     ]
 
 
-def nav_episodes(tmp) -> tuple:
-    """A GVLN trajectory file of straight routes from NAV_STARTS to the table,
-    and the semantic map, written under ``tmp``; returns their paths."""
+def nav_episodes(tmp, scene_name: str = "room1m",
+                 traj_name: str = "trajectories_room.json",
+                 goal_less: bool = False) -> tuple:
+    """A GVLN trajectory file of straight routes from NAV_STARTS to the table
+    (with ``goal_less``, route 0 also carries a Goal-less instruction: one
+    more episode, the no-goal measures), and the semantic map, written under
+    ``tmp``; returns their paths."""
     import math
     from sage3d_tpu_torch.utils.transforms import world_quat_from_map_yaw
     goal = (3.0, 2.5)
@@ -419,15 +474,61 @@ def nav_episodes(tmp) -> tuple:
         samples.append({"trajectory_id": str(i), "points": points,
                         "instructions": [{
                             "generated_instruction":
-                                f"Walk to the table (route {i}).",
+                                f"Walk to the table (route {i}, "
+                                f"{scene_name}).",
                             "instruction_type": "AC", "start": "label_0",
                             "end": "label_3"}]})
-    traj = tmp / "trajectories_room.json"
+    if goal_less:
+        samples[0]["instructions"].append({
+            "generated_instruction": f"Explore the room freely ({scene_name}).",
+            "instruction_type": "Goal-less", "start": "label_0",
+            "end": "label_0"})
+    traj = tmp / traj_name
     traj.write_text(json.dumps({"scenes": [{
-        "scene_id": 1, "scene_name": "room1m", "samples": samples}]}))
-    map_path = tmp / "2D_Semantic_Map_room1m_Complete.json"
+        "scene_id": 1, "scene_name": scene_name, "samples": samples}]}))
+    map_path = tmp / f"2D_Semantic_Map_{scene_name}_Complete.json"
     map_path.write_text(json.dumps(nav_semantic_map()))
     return traj, map_path
+
+
+def probe_poses(room) -> list:
+    """16 probe poses, as ((x, y), yaw): the densest frames an agent in a
+    synthetic room sees. The occupancy grid holds only the walls, so an
+    agent walks through the room's objects: a pose at each object's centre
+    (8), 4 close up facing a wall, and 4 anywhere inside the walls."""
+    import numpy as np
+    rng = np.random.default_rng(6)
+    sem = room.semantic_ids
+    poses = [((float(c[0]), float(c[1])), float(w)) for c, w in zip(
+        [room.means[sem == k].mean(0).tolist()
+         for k in range(1, int(sem.max()) + 1)],
+        rng.uniform(-np.pi, np.pi, 8))]
+    for i in range(4):
+        ang = i * np.pi / 2 + np.pi / 4
+        poses.append(((4.6 * np.cos(ang), 4.6 * np.sin(ang)), float(ang)))
+    poses += [((float(x), float(y)), float(w)) for x, y, w in zip(
+        rng.uniform(-4.0, 4.0, 4), rng.uniform(-4.0, 4.0, 4),
+        rng.uniform(-np.pi, np.pi, 4))]
+    return poses
+
+
+def route_poses(episodes, spacing: float = 0.2) -> list:
+    """Poses along episodes' reference paths, as ((x, y), yaw): every
+    ``spacing`` m of each segment (an agent's step is up to 0.2 m), facing
+    along it, and the last gt location: the views an agent that follows the
+    route sees, walking through the objects in its way."""
+    import math
+    poses = []
+    for ep in episodes:
+        pts = [p[:2] for p in ep["gt_locations"]]
+        yaw = 0.0
+        for a, b in zip(pts, pts[1:]):
+            yaw = math.atan2(b[1] - a[1], b[0] - a[0])
+            n = max(1, math.ceil(math.dist(a, b) / spacing))
+            poses += [((a[0] + (b[0] - a[0]) * k / n,
+                        a[1] + (b[1] - a[1]) * k / n), yaw) for k in range(n)]
+        poses.append(((float(pts[-1][0]), float(pts[-1][1])), yaw))
+    return poses
 
 
 def navigation(room, card: str) -> list:
@@ -436,7 +537,6 @@ def navigation(room, card: str) -> list:
     counted from 0 just before the run and read just after, and the phase's
     peak device memory."""
     import tempfile
-    import warnings
     from pathlib import Path
 
     import numpy as np
@@ -571,22 +671,7 @@ def navigation(room, card: str) -> list:
     mask[:2, :] = mask[-2:, :] = 1
     mask[:, :2] = mask[:, -2:] = 1
     grid = grid_from_mask(mask, bounds=[-5.0, 5.0, -5.0, 5.0])
-    # 16 probe poses: the densest frames an agent in this room sees. The
-    # occupancy grid holds only the walls, so an agent walks through the
-    # room's objects: a pose at each object's centre (8), 4 close up facing
-    # a wall, and 4 anywhere inside the walls.
-    rng = np.random.default_rng(6)
-    sem = room.semantic_ids
-    poses = [((float(c[0]), float(c[1])), float(w)) for c, w in zip(
-        [room.means[sem == k].mean(0).tolist()
-         for k in range(1, int(sem.max()) + 1)],
-        rng.uniform(-np.pi, np.pi, 8))]
-    for i in range(4):
-        ang = i * np.pi / 2 + np.pi / 4
-        poses.append(((4.6 * np.cos(ang), 4.6 * np.sin(ang)), float(ang)))
-    poses += [((float(x), float(y)), float(w)) for x, y, w in zip(
-        rng.uniform(-4.0, 4.0, 4), rng.uniform(-4.0, 4.0, 4),
-        rng.uniform(-np.pi, np.pi, 4))]
+    poses = probe_poses(room)
     cams = stack_cameras([agent_camera(xy_, yaw_, width=NAV_W, height=NAV_H,
                                        device=dev) for xy_, yaw_ in poses])
     budgets = autotune_poses(room, cams, pair_margin=1.5)
@@ -785,17 +870,10 @@ def navigation(room, card: str) -> list:
     env.apply_cmd_for = timed("apply_cmd_for", env.apply_cmd_for)
     out_dir = tmp / "runs"
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            summary, n_r = counted(lambda: run_benchmark(
-                env, episodes, policy, output_dir=str(out_dir),
-                max_steps=NAV_RUNNER_STEPS))
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    (summary, n_r), syncs = counting_syncs(lambda: counted(
+        lambda: run_benchmark(env, episodes, policy, output_dir=str(out_dir),
+                              max_steps=NAV_RUNNER_STEPS)))
     wall = time.perf_counter() - t0
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
     steps = {}
     for ep in episodes:
         eid = ep["episode_id"]
@@ -850,6 +928,426 @@ def navigation(room, card: str) -> list:
     tmpdir.cleanup()
     reset_peak()
     return launched, peak[0]
+
+
+def data_semantic_map(room) -> list:
+    """The data path's 2D semantic map of a synthetic room: its walls at
+    x, y = +-5 m (``nav_semantic_map``'s) and its 8 objects as instances,
+    0.8 m squares at the mean of each object's Gaussians, labelled with
+    ``DATA_LABELS`` (no two of one category or similar group)."""
+    import numpy as np
+    records = [nav_semantic_map()[0]]
+    sem = room.semantic_ids
+    half = np.round(np.arange(-0.4, 0.4001, 0.05), 4)
+    for k, label in enumerate(DATA_LABELS, start=1):
+        cx, cy = (round(float(v), 2) for v in room.means[sem == k].mean(0)[:2])
+        records.append({
+            "category_label": label, "instance_id": k,
+            "item_id": f"label_{k}",
+            "mask_coords_m": [[round(cy + dy, 4), round(cx + dx, 4)]
+                              for dy in half for dx in half],
+            "bbox_m": [cx - 0.4, cy - 0.4, cx + 0.4, cy + 0.4]})
+    return records
+
+
+def object_labels(scene) -> list:
+    """labels.json records of a synthetic room: each object's box (the AABB
+    of its Gaussians' means), as InteriorGS writes them."""
+    labels = []
+    for k, label in enumerate(DATA_LABELS, start=1):
+        means = scene.means[scene.semantic_ids == k]
+        lo, hi = means.min(0).values.tolist(), means.max(0).values.tolist()
+        labels.append({"label": label, "ins_id": k, "bounding_box": [
+            {"x": x, "y": y, "z": z} for x in (lo[0], hi[0])
+            for y in (lo[1], hi[1]) for z in (lo[2], hi[2])]})
+    return labels
+
+
+def data_path(room, room_200k, card: str) -> list:
+    """Phase 10, the SAGE-Bench data path (see the module docstring): the
+    planner, trajectory generation, actions, waypoint images and NaVILA on
+    the 1M room, and the batch benchmark's hot swap between bundles of the
+    1M and the 200k room. Returns K1's and K2's launches on its main-path
+    runs (the images and the batch), each counted from 0 just before the
+    run and read just after."""
+    import tempfile
+    from io import BytesIO
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from sage3d_tpu_torch.bench.batch import run_batch_benchmark
+    from sage3d_tpu_torch.bench.episodes import adapt_gvln_to_episodes
+    from sage3d_tpu_torch.bench.tasks import (TaskTypeManager,
+                                              adapt_episode_for_task)
+    from sage3d_tpu_torch.benchmarks import planner_bench
+    from sage3d_tpu_torch.data import (actions, astar, images, merge, navila,
+                                       scene_build, trajectory_gen,
+                                       transform_2d3d)
+    from sage3d_tpu_torch.data.llm import MockLLMClient
+    from sage3d_tpu_torch.env.vln_env import GaussianVLNEnv
+    from sage3d_tpu_torch.ops import binning, composite_cuda
+    from sage3d_tpu_torch.renderer.camera import (agent_camera,
+                                                  stack_cameras,
+                                                  unstack_cameras)
+    from sage3d_tpu_torch.renderer.render import (autotune_poses,
+                                                  budget_kwargs, render,
+                                                  render_batch, rgb_to_uint8)
+    from sage3d_tpu_torch.renderer.scene import save_ply
+    from sage3d_tpu_torch.serve.policy import OraclePolicy
+
+    dev = room.device
+    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd)
+    launched = [0, 0]
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = [k.launches for k in kernels]
+        launched[0] += n[0]
+        launched[1] += n[1]
+        return out, n
+
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
+    tmp = Path(tmpdir.name)
+
+    # 10a. the planner ----------------------------------------------------------
+    for size, n_pairs, n_astar in PLANNER_GRIDS:
+        res = planner_bench.run(size, n_pairs, device=dev, n_astar=n_astar)
+        print(f"10a planner_bench {size}x{size} {card}: {json.dumps(res)}",
+              flush=True)
+        check(res["reachability_agree"] == n_astar
+              and res["reach_astar"] == res["reach_wavefront"],
+              f"10a {size}x{size}: reachability equals host A*'s and path "
+              "lengths agree within max(2, 2%) on every pair")
+        g = planner_bench.make_grid(size)
+        pairs = planner_bench.sample_free(g, n_pairs)
+        src, dst = pairs[:BATCH_PLAN, 0], pairs[:BATCH_PLAN, 1]
+        d_card, n_card = astar.wavefront_distances(g == 0, src, device=dev,
+                                                   return_relaxations=True)
+        d_cpu, n_cpu = astar.wavefront_distances(g == 0, src, device="cpu",
+                                                 return_relaxations=True)
+        same = torch.equal(d_card.cpu(), d_cpu) and n_card == n_cpu
+        check(same, f"10a {size}x{size}: the card's distance fields are "
+              "bitwise the CPU's (16 sources)")
+        del d_card, d_cpu
+
+        def one_batch():
+            return astar.plan_many(g == 0, src, dst, device=dev)
+
+        one_batch()
+        t0 = time.perf_counter()
+        _, syncs = counting_syncs(one_batch)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        one_batch()
+        batch_ms = min(batch_ms, (time.perf_counter() - t0) * 1e3)
+        busy, n_ops, top = device_busy(one_batch, reps=1)
+        relax_bytes = 2 * BATCH_PLAN * size * size * 4
+        bound = n_card * relax_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"10a one batch of {BATCH_PLAN} at {size}x{size} {card}: "
+              f"{batch_ms:.3f} ms (host clock, the fields' copy included), "
+              f"{n_card} relaxations, {n_ops:.0f} kernels and copies "
+              f"({n_ops / n_card:.1f} a relaxation), {syncs} host syncs; "
+              f"device busy {busy:.3f} ms, idle share "
+              f"{1.0 - busy / batch_ms:.3f}; bytes bound of the relaxations "
+              f"{bound:.4f} ms ({relax_bytes / 1e6:.2f} MB read and written "
+              f"a relaxation, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+        for kname, kms, kn in top[:3]:
+            print(f"  top kernel planner {size}: {kms:.3f} ms, {kn:g} "
+                  f"launches a batch: {kname}", flush=True)
+
+    # 10b. trajectory generation ------------------------------------------------
+    sem_data = data_semantic_map(room)
+    maps = tmp / "maps"
+    maps.mkdir()
+    (maps / "2D_Semantic_Map_room1m_Complete.json").write_text(
+        json.dumps(sem_data))
+    grid, scale, min_x, min_y = trajectory_gen.build_2d_map(
+        json.loads(json.dumps(sem_data)))
+    index = trajectory_gen.item_index(sem_data)
+    items = [r["item_id"] for r in sem_data[1:]]
+    allowed = trajectory_gen.filter_pairs(
+        [(a, b) for a in items for b in items if a != b], index)
+    min_trajs = min(trajectory_gen.MIN_TRAJS_PER_SCENE, len(allowed))
+    planned = []
+    plan_many = trajectory_gen.plan_many
+
+    def timed_plan_many(*a, **k):
+        t = time.perf_counter()
+        out = plan_many(*a, **k)
+        planned.append((len(a[1]), time.perf_counter() - t))
+        return out
+
+    trajectory_gen.plan_many = timed_plan_many
+    t0 = time.perf_counter()
+    try:
+        summary = trajectory_gen.process_scene(
+            "room1m", json.loads(json.dumps(sem_data)), tmp / "traj",
+            client=MockLLMClient(), min_trajs=min_trajs, seed=0,
+            visualize=False, device=dev)
+    finally:
+        trajectory_gen.plan_many = plan_many
+    gen_s = time.perf_counter() - t0
+    plan_s = sum(t for _, t in planned)
+    n_traj = summary["trajectories"]
+    off_grid = 0
+    n_points = 0
+    parts = sorted((tmp / "traj" / "room1m").glob("trajectories_*_part*.json"))
+    for part in parts:
+        for sample in json.loads(part.read_text())["scenes"][0]["samples"]:
+            for pt in sample["points"]:
+                x = int(round((pt["position"][0] - min_x) / scale - 0.5))
+                y = int(round((pt["position"][1] - min_y) / scale - 0.5))
+                off_grid += int(grid[y, x] != 0)
+                n_points += 1
+    print(f"10b process_scene on the 1M room's map ({grid.shape[0]}x"
+          f"{grid.shape[1]} grid, {len(items)} objects, {len(allowed)} pairs "
+          f"the map allows, min_trajs {min_trajs}) {card}: {json.dumps(summary)}"
+          f" in {gen_s:.3f} s, {n_traj / gen_s:.2f} trajectories/s; the "
+          f"wavefront planner {plan_s:.3f} s ({plan_s / gen_s:.1%}) over "
+          f"{len(planned)} call(s) of {[n for n, _ in planned]} pairs; "
+          f"{n_points} points in {len(parts)} part file(s)", flush=True)
+    check(len(planned) >= 1, "10b: the batched wavefront branch ran")
+    check(n_traj >= 1 and n_points > 0 and off_grid == 0,
+          "10b: every trajectory point lies on a free cell")
+
+    # 10c. actions, waypoint images, NaVILA -------------------------------------
+    scene_dir = tmp / "traj" / "room1m"
+    check(transform_2d3d.process_scene(scene_dir, maps) == len(parts),
+          "10c: every part file transformed to the world frame")
+    merged = merge.merge_scene(scene_dir, prefix="gvln")
+    gt_path = actions.process_trajectory_file(merged, tmp / "actions" /
+                                              "room1m")
+    gt = json.loads(gt_path.read_text())["trajectories"][:DATA_TRAJS]
+    points = [pt for rec in gt for pt in rec["sampled_points"]]
+    n_frames = len(points)
+    cams = images.waypoint_cameras(points, DATA_W, DATA_H, device=dev)
+    t0 = time.perf_counter()
+    budgets = autotune_poses(room, cams, pair_margin=1.5)
+    bk = budget_kwargs(budgets)
+    print(f"10c budgets (autotune_poses over the {n_frames} waypoint cameras "
+          f"of {len(gt)} trajectories, pair_margin 1.5, "
+          f"{time.perf_counter() - t0:.1f} s): {json.dumps(budgets)}",
+          flush=True)
+    t0 = time.perf_counter()
+    meta, n_i = counted(lambda: images.generate_scene_images(
+        room, gt_path, tmp / "images", "room1m", batch_size=DATA_BATCH,
+        max_trajectories=DATA_TRAJS, width=DATA_W, height=DATA_H, device=dev,
+        **bk))
+    img_s = time.perf_counter() - t0
+    frames_done = sum(t["num_frames"] for t in meta["trajectories"].values())
+    print(f"10c generate_scene_images, {len(meta['trajectories'])} "
+          f"trajectories, {frames_done} frames at {DATA_W}x{DATA_H}, batch "
+          f"{DATA_BATCH} {card}: {img_s:.3f} s, {frames_done / img_s:.2f} "
+          f"frames/s, {frames_done * DATA_W * DATA_H / img_s / 1e6:.2f} "
+          f"Mpix/s (host clock, JPEG encode included), launches K1 {n_i[0]} "
+          f"K2 {n_i[1]} ({n_i[0] / frames_done:g} and {n_i[1] / frames_done:g}"
+          f" a frame), total_overflow {meta['total_overflow']}", flush=True)
+    check(frames_done == n_frames >= DATA_BATCH,
+          "10c: a frame for every waypoint")
+    check(meta["total_overflow"] == 0, "10c: overflow 0 on every frame")
+    check(n_i == [frames_done, frames_done], "10c: K1 and K2 once a frame")
+
+    # Where a frame's time goes: the first trajectory's batches replayed
+    # with CUDA events around the render and the uint8 conversion with its
+    # copy to the host; the JPEG encode on the host clock.
+    split = {"render": [], "uint8 and copy": [], "jpeg": []}
+    first = gt[0]["sampled_points"]
+    for start in range(0, len(first), DATA_BATCH):
+        chunk = first[start:start + DATA_BATCH]
+        bc = images.waypoint_cameras(chunk, DATA_W, DATA_H, device=dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.no_grad():
+            ev[0].record()
+            out = render_batch(room, bc, backend="cuda", **bk)
+            ev[1].record()
+            rgb = rgb_to_uint8(out["rgb"]).cpu().numpy()
+            ev[2].record()
+        ev[2].synchronize()
+        t = time.perf_counter()
+        for frame in rgb:
+            Image.fromarray(frame).save(BytesIO(), format="JPEG", quality=92)
+        split["jpeg"].append((time.perf_counter() - t) * 1e3 / len(chunk))
+        split["render"].append(ev[0].elapsed_time(ev[1]) / len(chunk))
+        split["uint8 and copy"].append(ev[1].elapsed_time(ev[2]) / len(chunk))
+    med = {k: statistics.median(v) for k, v in split.items()}
+    bc = images.waypoint_cameras(first[:DATA_BATCH], DATA_W, DATA_H,
+                                 device=dev)
+    n_b = bc.position.shape[0]
+    with torch.no_grad():
+        busy, n_ops, top = device_busy(
+            lambda: render_batch(room, bc, backend="cuda", **bk), reps=1)
+    frame_ms = sum(med.values())
+    print(f"10c a frame's split {card} (medians over the first trajectory's "
+          f"batches): " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
+          + f"; device busy {busy / n_b:.3f} ms a frame, idle share of the "
+          f"frame's {frame_ms:.3f} ms {1.0 - busy / n_b / frame_ms:.3f}, "
+          f"{n_ops / n_b:.0f} kernels and copies a frame (torch.profiler, "
+          f"one unsynchronized batch of {n_b})", flush=True)
+    for kname, kms, kn in top[:3]:
+        print(f"  top kernel waypoint batch: {kms / n_b:.3f} ms, "
+              f"{kn / n_b:g} launches a frame: {kname}", flush=True)
+
+    # The cuda frames of one batch against the torch backend's.
+    with torch.no_grad():
+        cu = render_batch(room, bc, backend="cuda", **bk)
+        tb = render_batch(room, bc, backend="torch", **bk)
+    err = float((cu["rgb"] - tb["rgb"]).abs().max())
+    print(f"10c cuda vs torch backend, {n_b} waypoint frames: rgb max |diff| "
+          f"{err:.3e}, overflow {int(cu['overflow'].sum())} / "
+          f"{int(tb['overflow'].sum())}", flush=True)
+    check(err <= BACKEND_ATOL and int(cu["overflow"].sum()) == 0,
+          f"10c: a batch of cuda waypoint frames within {BACKEND_ATOL} of "
+          "the torch backend's")
+    del cu, tb, out
+
+    # K1 and K2 against their plain versions at the densest waypoint frame.
+    cam_list = unstack_cameras(cams)
+    with torch.no_grad():
+        walked = [int(render(room, c, **bk)["grad_chunks"]) for c in cam_list]
+    i_dense = int(np.argmax(walked))
+    print(f"10c chunks walked per waypoint frame: median "
+          f"{statistics.median(walked):.0f}, max {walked[i_dense]} "
+          f"(frame {i_dense})", flush=True)
+    k1_k2_against_plain(room, cam_list[i_dense], bk,
+                        f"10c waypoint frame {i_dense}")
+
+    info = navila.create_dataset([{
+        "scene_id": "room1m", "actions_path": gt_path,
+        "images_metadata_path": tmp / "images" / "room1m" /
+        "image_metadata.json", "trajectories_path": merged}], tmp / "navila")
+    print(f"10c NaVILA: {info['total_samples']} samples in "
+          f"{info['num_parts']} part file(s)", flush=True)
+    check(info["total_samples"] > 0, "10c: the NaVILA set has samples")
+
+    # 10d. the multi-scene batch ------------------------------------------------
+    scenes_dir, bundles, tests_dir = (tmp / "scenes", tmp / "bundles",
+                                      tmp / "tests")
+    for d in (scenes_dir, bundles, tests_dir):
+        d.mkdir()
+    named = {"room1m": room, "room200k": room_200k}
+    budgets_of, t_build, episodes = {}, {}, {}
+    for name, scene in named.items():
+        t0 = time.perf_counter()
+        save_ply(scene, scenes_dir / f"{name}.ply")
+        labels = scenes_dir / f"{name}_labels.json"
+        labels.write_text(json.dumps(object_labels(scene)))
+        _, map_path = nav_episodes(tests_dir, scene_name=name,
+                                   traj_name=f"test_{name}.json",
+                                   goal_less=True)
+        map_path.rename(maps / map_path.name)
+        manifest = scene_build.build_scene_bundle(
+            scenes_dir / f"{name}.ply", labels, maps / map_path.name, bundles,
+            scene_id=name, device=dev)
+        t_build[name] = time.perf_counter() - t0
+        m = json.loads(manifest.read_text())
+        print(f"10d bundle {name}: {m['num_gaussians']} Gaussians, "
+              f"{m['num_labeled_gaussians']} labelled in "
+              f"{m['num_instances']} instances, PLY + bundle "
+              f"{t_build[name]:.2f} s", flush=True)
+        # The probes: the room's 16, and every 0.2 m of the episodes'
+        # routes (the agent walks through objects the map does not hold).
+        episodes[name] = adapt_gvln_to_episodes(
+            tests_dir / f"test_{name}.json", str(manifest))
+        probes = probe_poses(scene) + route_poses(episodes[name])
+        budgets_of[name] = autotune_poses(scene, stack_cameras([
+            agent_camera(xy, yaw, width=NAV_W, height=NAV_H, device=dev)
+            for xy, yaw in probes]), pair_margin=1.5)
+        print(f"10d budgets {name} (autotune_poses over {len(probes)} "
+              f"probes, pair_margin 1.5): {json.dumps(budgets_of[name])}",
+              flush=True)
+    env = GaussianVLNEnv(str(bundles / "room200k" / "manifest.json"),
+                         map_json=str(maps / "2D_Semantic_Map_room200k_"
+                                      "Complete.json"),
+                         width=NAV_W, height=NAV_H,
+                         budgets=budgets_of["room200k"], device=dev)
+
+    def instruction_of(ep):
+        task_type = TaskTypeManager.infer_task_type(ep)
+        return TaskTypeManager.create_task(task_type, {}).get_instruction(
+            adapt_episode_for_task(ep, task_type))
+
+    # The oracles by (scene, instruction): the no-goal episodes of both
+    # scenes get the same default instruction.
+    oracles = {}
+    for name in named:
+        for ep in episodes[name]:
+            oracles[name, instruction_of(ep)] = OraclePolicy(env, ep)
+    answers = {k: 0 for k in oracles}
+    marks = []      # at each hot swap: the scene, the swap's time, the clock,
+                    # the env's overflow and the policy's answers so far
+
+    def policy(images, instruction, current_yaw=0.0, depth_images=None,
+               **kw_):
+        key = (marks[-1][0], instruction)
+        resp = oracles[key](images=images, instruction=instruction,
+                            current_yaw=current_yaw,
+                            depth_images=depth_images)
+        answers[key] += 1
+        return resp
+
+    # The runner finds each bundle's scene.ply (matched before its
+    # manifest.json, as in the JAX package) and swaps it into the env.
+    load_scene = env.load_scene
+
+    def timed_load(scene):
+        t = time.perf_counter()
+        load_scene(scene)
+        torch.cuda.synchronize()
+        marks.append((Path(str(scene)).parent.name, time.perf_counter() - t,
+                      t, int(env.total_overflow), sum(answers.values())))
+
+    env.load_scene = timed_load
+    summary, n_r = counted(lambda: run_batch_benchmark(
+        env, tests_dir, bundles, maps, policy, tmp / "batch_runs",
+        max_steps=NAV_RUNNER_STEPS, budgets=budgets_of))
+    marks.append(("end", 0.0, time.perf_counter(), int(env.total_overflow),
+                  sum(answers.values())))
+    print(f"10d run_batch_benchmark, hot swap room200k -> "
+          + " -> ".join(m[0] for m in marks[:-1]) + f" {card}: "
+          f"{json.dumps(summary['batch_summary'])}; launches K1 {n_r[0]} K2 "
+          f"{n_r[1]}, env total_overflow {int(env.total_overflow)}",
+          flush=True)
+    for (name, load_s, t_a, ovf_a, n_a), (_, _, t_b, ovf_b, n_b) in zip(
+            marks, marks[1:]):
+        steps = n_b - n_a
+        print(f"10d scene {name} {card}: load_scene {load_s * 1e3:.1f}"
+              f" ms, {steps} env steps, {(t_b - t_a) * 1e3 / max(steps, 1):.3f}"
+              f" ms an env step (host clock from the swap to the next, the "
+              f"runner's file work included), overflow {ovf_b - ovf_a}",
+              flush=True)
+        check(ovf_b == ovf_a, f"10d: overflow 0 on {name}'s frames")
+    steps_run = {}
+    for name in named:
+        for ep in episodes[name]:
+            eid = ep["episode_id"]
+            rec = tmp / "batch_runs" / name / eid / "measurements" / \
+                f"{eid}.json"
+            steps_run[f"{name}/{eid}"] = (
+                json.loads(rec.read_text())["episode_info"]["steps_run"]
+                if rec.exists() else None, answers[name, instruction_of(ep)])
+    print(f"10d steps_run and policy answers per episode: "
+          f"{json.dumps(steps_run)}", flush=True)
+    results = summary["file_results"]
+    check([r["status"] for r in results] == ["ok", "ok"]
+          and summary["batch_summary"]["failed_episodes"] == 0,
+          "10d: both files ran without a failure")
+    check(all(s is not None and s == a for s, a in steps_run.values()),
+          "10d: the policy answered on every step of every episode")
+    check(all(set(r.get("metrics", {})) == MEASURES for r in results),
+          "10d: all 13 measures in both scenes' results")
+    n_steps = sum(s for s, _ in steps_run.values())
+    check(n_r[0] == n_r[1] == n_steps, "10d: K1 and K2 once a frame")
+    check([m[0] for m in marks[:-1]] == sorted(named)
+          and env.render_kw == budget_kwargs(budgets_of[marks[-2][0]]),
+          "10d: each file hot-swapped its scene in; the env ends with the last"
+          " scene's budgets")
+    tmpdir.cleanup()
+    return launched
 
 
 def main() -> int:
@@ -1631,6 +2129,14 @@ def main() -> int:
           f"launches K1 {launches_nav[0]} K2 {launches_nav[1]}, peak device "
           f"memory {nav_peak / 2**30:.2f} GiB", flush=True)
     script_peak = max(script_peak, nav_peak)
+
+    # 10. the data path -------------------------------------------------------------
+    t0 = time.perf_counter()
+    launches_data = data_path(frames["a_1080p_1M"][0],
+                              frames["c_env_640x480_200k"][0], card)
+    print(f"data phase {card}: {time.perf_counter() - t0:.1f} s, launches "
+          f"K1 {launches_data[0]} K2 {launches_data[1]}", flush=True)
+    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
     print(f"peak device memory {card}: {script_peak / 2**30:.2f} GiB for the "
           f"script, {peak_b / 2**30:.2f} GiB at frame b's render", flush=True)
 
@@ -1639,7 +2145,7 @@ def main() -> int:
          "source": "sage3d_tpu_torch/csrc/emit.cu",
          "replaces": "sage3d_tpu/ops/binning.py:153",
          "launches": launches["emit"] + launches_train["emit"]
-         + launches_bench["emit"] + launches_nav[0],
+         + launches_bench["emit"] + launches_nav[0] + launches_data[0],
          "max_abs_err": 0.0 if k1_equal else None,
          "ms": k1_ms, "back_to_back_ms": dev_ms["K1"],
          "host_ms": host_ms["K1"],
@@ -1650,7 +2156,7 @@ def main() -> int:
          "replaces": "sage3d_tpu/ops/composite_pallas.py:156",
          "launches": launches["composite_fwd"]
          + launches_train["composite_fwd"] + launches_bench["composite_fwd"]
-         + launches_nav[1],
+         + launches_nav[1] + launches_data[1],
          "max_abs_err": k2_err,
          "ms": k2_ms, "back_to_back_ms": dev_ms["K2"],
          "host_ms": host_ms["K2"],

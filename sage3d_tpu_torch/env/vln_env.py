@@ -42,8 +42,9 @@ class GaussianVLNEnv:
     """Stateful env facade over the render, occupancy and agent cores.
 
     Args:
-      scene: a GaussianScene (moved to ``device`` if it lies elsewhere) or
-        the path of a 3DGS PLY.
+      scene: a GaussianScene (moved to ``device`` if it lies elsewhere), the
+        path of a 3DGS PLY, or the ``manifest.json`` of a scene bundle
+        (``data/scene_build.py``).
       map_json: 2D semantic map (path, instance list or OccupancyGrid) for
         collision; None disables collision (reference --disable-collision
         debug mode).
@@ -54,7 +55,9 @@ class GaussianVLNEnv:
         (raises without one: pass ``device="cpu"`` for the CPU).
       budgets: an ``autotune_*`` budgets dict for the frames (through
         ``budget_kwargs``); None takes ``render``'s defaults, as the JAX env
-        does. ``total_overflow`` sums every frame's dropped pairs.
+        does; ``set_budgets`` replaces them (a hot swap to a denser scene
+        needs budgets that cover it). ``total_overflow`` sums every frame's
+        dropped pairs.
     """
 
     def __init__(
@@ -81,7 +84,7 @@ class GaussianVLNEnv:
         self.hz = hz
         self.camera_height = camera_height
         self.robot_radius_m = robot_radius_m
-        self.render_kw = budget_kwargs(budgets) if budgets else {}
+        self.set_budgets(budgets)
         self.semantic_map_path: Optional[str] = None
         self.scene: GaussianScene = None
         self.grid: Optional[OccupancyGrid] = None
@@ -101,12 +104,16 @@ class GaussianVLNEnv:
         if isinstance(scene, GaussianScene):
             self.scene = GaussianScene(*(t.to(self.device) for t in scene))
         elif str(scene).endswith("manifest.json"):
-            raise NotImplementedError(
-                "scene bundles (manifest.json) need data/scene_build.py, "
-                "which the port has not taken yet (ROADMAP Queue 1 item 12); "
-                "load the bundle's PLY instead")
+            # scene-bundle directory (data/scene_build.py): PLY + labels
+            from ..data.scene_build import load_scene_bundle
+            self.scene, _ = load_scene_bundle(scene, device=self.device)
         else:
             self.scene = load_ply(scene, device=self.device)
+
+    def set_budgets(self, budgets: Optional[dict]) -> None:
+        """The frames' binning budgets from now on: an ``autotune_*`` dict,
+        or None for ``render``'s defaults."""
+        self.render_kw = budget_kwargs(budgets) if budgets else {}
 
     def update_map(self, map_json) -> None:
         self.semantic_map_path = map_json if isinstance(map_json, str) else None

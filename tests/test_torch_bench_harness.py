@@ -356,8 +356,17 @@ def test_env_device_and_backend_rules(world, tmp_path):
     assert tenv.device.type == "cpu" and tenv.backend == "torch"
     assert tenv.scene.means.device.type == "cpu"
     assert tenv.grid.obstacle.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TEnv(str(tmp_path / "manifest.json"), device="cpu")
+    # a scene bundle (manifest.json) loads onto the env's device
+    from sage3d_tpu_torch.data.scene_build import build_scene_bundle
+    from sage3d_tpu_torch.renderer.scene import save_ply
+    save_ply(tenv.scene, tmp_path / "room.ply")
+    (tmp_path / "labels.json").write_text("[]")
+    manifest = build_scene_bundle(tmp_path / "room.ply",
+                                  tmp_path / "labels.json", "map.json",
+                                  tmp_path / "bundles", device="cpu")
+    benv = TEnv(str(manifest), device="cpu")
+    assert benv.device.type == "cpu" and benv.backend == "torch"
+    assert torch.equal(benv.scene.means, tenv.scene.means)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TEnv(tenv.scene)

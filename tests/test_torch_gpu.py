@@ -359,3 +359,72 @@ def test_rollout_on_the_card_matches_cpu():
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got["mean_depth"], want["mean_depth"],
                                rtol=1e-4, atol=1e-4)
+
+
+def test_wavefront_on_the_card_equals_cpu():
+    from sage3d_tpu_torch.benchmarks.planner_bench import make_grid, sample_free
+    from sage3d_tpu_torch.data.astar import plan_many, wavefront_distances
+    _need_card_for("the wavefront planner")
+    g = make_grid(240)
+    pairs = sample_free(g, 16)
+    fields = {dev: wavefront_distances(g == 0, pairs[:, 0], device=dev,
+                                       return_relaxations=True)
+              for dev in ("cuda", "cpu")}
+    assert fields["cuda"][1] == fields["cpu"][1]
+    assert torch.equal(fields["cuda"][0].cpu(), fields["cpu"][0])
+    assert plan_many(g == 0, pairs[:, 0], pairs[:, 1], device="cuda") == \
+        plan_many(g == 0, pairs[:, 0], pairs[:, 1], device="cpu")
+
+
+def test_waypoint_images_on_the_card_match_cpu(tmp_path):
+    """One batch of waypoint frames through ``generate_scene_images``: the
+    card's ``cuda`` backend (K1, K2) against the CPU's ``torch`` backend,
+    within the cuda-vs-torch gate; the JPEGs within a few levels."""
+    import json
+    from PIL import Image
+    from sage3d_tpu_torch.data.images import generate_scene_images
+    _need_card_for("the waypoint image batch (K1, K2)")
+    points = [{"position": [x, -1.0 + 0.3 * x, 0.5],
+               "rotation": [0.0, 0.0, float(np.sin(y / 2)),
+                            float(np.cos(y / 2))]}
+              for x, y in zip(np.linspace(-2, 2, 4), (0.3, 1.2, 2.0, -2.5))]
+    gt = tmp_path / "action_groundtruth.json"
+    gt.write_text(json.dumps({"trajectories": [{
+        "trajectory_id": "0", "sampled_points": points,
+        "actions": ["MOVE_FORWARD"] * 3 + ["STOP"]}]}))
+    kw = dict(width=320, height=240, pair_capacity=1 << 20,
+              tile_capacity=1 << 14)
+    metas = {}
+    for dev in ("cuda", "cpu"):
+        scene = synthetic_room(20_000, seed=3, device=dev)
+        before = binning.emit_tile_pairs.launches
+        metas[dev] = generate_scene_images(scene, gt, tmp_path / dev, "s",
+                                           batch_size=4, device=dev, **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert binning.emit_tile_pairs.launches == before + 4
+    assert metas["cuda"]["total_overflow"] == metas["cpu"]["total_overflow"] == 0
+    assert metas["cuda"] == metas["cpu"]
+    for f in metas["cpu"]["trajectories"]["0"]["frames"]:
+        a = np.asarray(Image.open(tmp_path / "cuda" / "s" / f), np.int16)
+        b = np.asarray(Image.open(tmp_path / "cpu" / "s" / f), np.int16)
+        assert np.abs(a - b).mean() < 0.5
+    # The card's cuda frames against its torch backend's: the cuda-vs-torch
+    # gate. Against the CPU's torch backend, a pixel whose alpha lies at the
+    # 1/255 cutoff may land on the other side of it (exp differs in the last
+    # place between the devices) and move by alpha * T * colour < 1/255: all
+    # but 0.1% of the values within the gate, every one within 1/255.
+    from sage3d_tpu_torch.data.images import waypoint_cameras
+    frames = {}
+    for dev, backend in (("cuda", "cuda"), ("cuda", "torch"), ("cpu", "torch")):
+        scene = synthetic_room(20_000, seed=3, device=dev)
+        cams = waypoint_cameras(points, 320, 240, device=dev)
+        with torch.no_grad():
+            frames[dev, backend] = trender.render_batch(
+                scene, cams, backend=backend, pair_capacity=kw["pair_capacity"],
+                tile_capacity=kw["tile_capacity"])["rgb"].cpu()
+    card = frames["cuda", "cuda"]
+    assert float((card - frames["cuda", "torch"]).abs().max()) <= 5e-4
+    diff = (card - frames["cpu", "torch"]).abs()
+    assert float((diff > 5e-4).float().mean()) <= 1e-3
+    assert float(diff.max()) < 1 / 255
