@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render, training, navigation and data paths on
-one CUDA card, at full size.
+"""Drive the PyTorch port's render, training, navigation, data, serving and
+density-control paths on one CUDA card, at full size.
 
     python3 chip_smoke.py
 
@@ -123,7 +123,39 @@ no result line):
      boxes), 5 oracle episodes a scene (4 routes and a Goal-less one), each
      scene with its own ``autotune_poses`` budgets: every step answered,
      overflow 0 on both scenes, the 13 measures in both files' results; ms an
-     env step per scene and each hot swap's ``load_scene`` time.
+     env step per scene and each hot swap's ``load_scene`` time;
+ 11. serving (``serving``): 11a, the CNN policy of ``serve/torch_policy.py``
+     at its defaults (96x128, 4 frames) on the card against its CPU copy, 8
+     seeded frame stacks: logits within ``TF32_REL`` of max |logit|, the
+     same action where the top two are clear; 11b, ``run_benchmark`` over
+     phase 9c's 4 episodes at 640x480 in the 1M room with the policy served
+     by ``make_torch_policy_server(device="cuda")`` in a thread, reached
+     through ``make_socket_policy``, ``max_steps`` ``SERVE_STEPS``: no
+     failure, a policy answer on every step, overflow 0, K1 and K2 once a
+     frame; ms an env step, a request's p50 and p99 split into decode +
+     ``prep_frames`` and the device call, host syncs a step; 11c,
+     ``from_torch_policy(max_batch=8)`` and the unbatched server under 8
+     client threads of 16 requests: valid answers, fewer batches than
+     requests, a batch of 2 or more; requests/s, latency p50 and p99; 11d,
+     a compressed PLY of the 1M room (``tests/splat_transform_port.py``):
+     the native decoder in use and within 1e-5 of the Python one,
+     ``load_ply(device="cuda")`` ms, frame a of it with overflow 0, ``cli
+     validate-ply`` exits 0, ``cli run-benchmark`` on a compressed 20k room
+     against the policy server with render's default budgets and with
+     ``--budgets``: both exit 0 and print ``total_overflow``, 0 with
+     ``--budgets``;
+ 12. ADC training (``adc_training``): ``fit_scene_adaptive(backend="cuda")``
+     from ``importance_subset`` (100k) of frame c's 200k room towards its
+     renders from 4 orbit views at 640x480 (budgets from
+     ``autotune_poses(pair_margin=1.5)``), capacity 200k, 60 steps, density
+     control every 20, one opacity reset after step 40, each step and
+     round observed through the trainer module's names: K1-K4 every step,
+     the loss finite and falling between control events, ``n_alive``
+     growing, overflow 0 at the start, after each round and at the end, one
+     Adam throughout with the opacity moments zero after the reset, each
+     ``densify_prune`` round equal to it on a CPU copy with the same
+     generator state; step ms, Mpix/s, round ms, launches, device busy and
+     idle share of a step, peak memory.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -196,6 +228,25 @@ DATA_BATCH = 8          # generate_scene_images' batch_size (its default)
 DATA_TRAJS = 8          # trajectories rendered to waypoint images
 DATA_LABELS = ("table", "sofa", "wardrobe", "plant", "chair", "lamp", "tv",
                "refrigerator")  # the 8 objects' categories
+# Phase 11, serving on the 1M room.
+TF32_REL = 1e-2         # CNN logits, card vs CPU, over max |logit|: cuDNN may
+                        # run the convolutions in TF32 (10-bit mantissa)
+SERVE_STEPS = 50        # the runner's max_steps: a random CNN rarely stops
+SERVE_CLIENTS = 8       # 11c: client threads ...
+SERVE_REQUESTS = 16     # ... of this many requests each
+
+# Phase 12, ADC training on frame c's 200k room.
+ADC_N = 200_000         # slot capacity (the target's size)
+ADC_START = 100_000     # importance_subset of the target: the start
+ADC_VIEWS, ADC_W, ADC_H = 4, 640, 480   # orbit views inside the walls
+ADC_STEPS = 60
+ADC_EVERY = 20          # densify_every: rounds after steps 20, 40 and 60
+ADC_RESET = 40          # opacity_reset_every: one reset, after step 40
+ADC_GRAD = 1e-7         # grad_threshold on the mean |d loss / d mean| (the
+                        # JAX test's); the loss is a per-pixel mean
+SPLIT_MEAN_TOL = 1e-6   # split offspring means, card vs CPU: exp and the
+                        # rotation's 3-term sums round differently there
+
 MEASURES = {"distance_to_goal", "success", "oracle_success", "path_length",
             "spl", "navigation_error", "collision_count",
             "continuous_success_ratio", "integrated_collision_penalty",
@@ -927,7 +978,7 @@ def navigation(room, card: str) -> list:
           "9c: the scripted server's STOP is honoured on step 4")
     tmpdir.cleanup()
     reset_peak()
-    return launched, peak[0]
+    return launched, peak[0], budgets
 
 
 def data_semantic_map(room) -> list:
@@ -1348,6 +1399,604 @@ def data_path(room, room_200k, card: str) -> list:
           " scene's budgets")
     tmpdir.cleanup()
     return launched
+
+
+def launches_of(kernels, fn):
+    """``fn()`` with the counters of ``kernels`` set to 0 just before and
+    read just after (host counts: no wait on the card)."""
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    return out, [k.launches for k in kernels]
+
+
+def percentile(xs, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, float), q)) if xs else float("nan")
+
+
+def serving(room, cam_a, budgets, card) -> list:
+    """Phase 11, serving (see the module docstring): the CNN policy on the
+    card against its CPU copy, ``run_benchmark`` against the policy server,
+    the micro-batching server under concurrent clients, and the compressed
+    PLY path with the CLI. Returns K1's and K2's launches on its main-path
+    runs, each counted from 0 just before the run and read just after."""
+    import collections
+    import contextlib
+    import io
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from sage3d_tpu_torch import cli
+    from sage3d_tpu_torch.bench.episodes import adapt_gvln_to_episodes
+    from sage3d_tpu_torch.bench.runner import run_benchmark
+    from sage3d_tpu_torch.env.vln_env import GaussianVLNEnv
+    from sage3d_tpu_torch.ops import binning, composite_cuda
+    from sage3d_tpu_torch.renderer.camera import agent_camera, stack_cameras
+    from sage3d_tpu_torch.renderer.render import (autotune_all,
+                                                  autotune_poses,
+                                                  budget_kwargs, render,
+                                                  rgb_to_uint8)
+    from sage3d_tpu_torch.renderer.scene import (load_ply, scene_to_numpy,
+                                                 synthetic_room)
+    from sage3d_tpu_torch.serve import mllm_server
+    from sage3d_tpu_torch.serve import torch_policy as tp
+    from sage3d_tpu_torch.serve.batch_server import from_torch_policy
+    from sage3d_tpu_torch.serve.client import create_vlm_client
+    from sage3d_tpu_torch.serve.policy import make_socket_policy
+    from sage3d_tpu_torch.utils import plyio_native as pn
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from splat_transform_port import write_compressed_ply_splat_transform
+
+    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd)
+    launched = [0, 0]
+
+    def counted(fn):
+        out, n = launches_of(kernels, fn)
+        launched[0] += n[0]
+        launched[1] += n[1]
+        return out, n
+
+    # 11a. the CNN on the card against its CPU copy --------------------------
+    params = tp.init_cnn_policy(device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+    card_params = {k: v.cuda() for k, v in params.items()}
+    x = torch.rand((8, 4, 96, 128, 3),
+                   generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = tp.CNNPolicy(params)(x)
+        got = tp.CNNPolicy(card_params)(x.cuda()).cpu()
+        b1_ms = cuda_ms(lambda: tp.cnn_policy_apply(card_params, x[0].cuda()),
+                        reps=20, warmup=3)
+        xb = x.cuda()
+        b8_ms = cuda_ms(lambda: tp.CNNPolicy(card_params)(xb), reps=20,
+                        warmup=3)
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * TF32_REL * scale
+    same = bool(torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear]))
+    print(f"11a CNN 96x128, 4 frames, channels (16, 32, 64), hidden 128 "
+          f"{card}: card vs CPU max |diff| / max |logit| {rel:.3e} over 8 "
+          f"frame stacks (cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}),"
+          f" argmax equal on {int(clear.sum())} of 8 with a clear top two; "
+          f"{b1_ms:.3f} ms a request (B=1), {b8_ms:.3f} ms a batch of 8 "
+          f"(CUDA events)", flush=True)
+    check(rel <= TF32_REL and same,
+          f"11a: the card's logits within {TF32_REL} of max |logit| of the "
+          "CPU's, the same action where the top two are clear")
+
+    # 11b. run_benchmark against the policy server -------------------------------
+    # Phase 9's budgets cover its probe poses and the oracle's routes; a
+    # policy that turns in place at a start sees every yaw there. Where
+    # those views overflow phase 9's budgets, the phase takes budgets over
+    # both sets of views.
+    dev = room.device
+    start_views = [(xy_, float(yaw_)) for xy_ in NAV_STARTS for yaw_ in
+                   np.linspace(-np.pi, np.pi, 12, endpoint=False)]
+    with torch.no_grad():
+        ovf9 = [int(render(room, agent_camera(xy_, yaw_, width=NAV_W,
+                                              height=NAV_H, device=dev),
+                           **budget_kwargs(budgets))["overflow"])
+                for xy_, yaw_ in start_views]
+    if sum(ovf9):
+        budgets = autotune_poses(room, stack_cameras([
+            agent_camera(xy_, yaw_, width=NAV_W, height=NAV_H, device=dev)
+            for xy_, yaw_ in probe_poses(room) + start_views]),
+            pair_margin=1.5)
+    print(f"11b phase 9's budgets at the 4 starts x 12 yaws: overflow "
+          f"{sum(ovf9)} (max {max(ovf9)} a view); budgets used "
+          f"{json.dumps(budgets)}", flush=True)
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    tmp = Path(tmpdir.name)
+    traj, map_path = nav_episodes(tmp)
+    episodes = adapt_gvln_to_episodes(traj, "room1m.ply")
+    env = GaussianVLNEnv(room, map_json=str(map_path), width=NAV_W,
+                         height=NAV_H, budgets=budgets)
+    server = tp.make_torch_policy_server(port=0, params=params,
+                                         device="cuda").start()
+    # per request: JPEG decoding of its frames, prep_frames, and the device
+    # call (the adapter's call less prep_frames; it ends in the argmax read)
+    spans = {"decode": [], "prep": [], "call": []}
+    pending = {"decode": 0.0, "prep": 0.0}
+    orig_decode = mllm_server.decode_image_b64
+    orig_prep, orig_generate = server.adapter._prep, \
+        server.adapter.generate_response
+
+    def decode(data):
+        t = time.perf_counter()
+        img = orig_decode(data)
+        pending["decode"] += time.perf_counter() - t
+        return img
+
+    def prep(images):
+        t = time.perf_counter()
+        out = orig_prep(images)
+        pending["prep"] = time.perf_counter() - t
+        return out
+
+    def generate(images, instruction):
+        t = time.perf_counter()
+        out = orig_generate(images, instruction)
+        spans["call"].append(time.perf_counter() - t - pending["prep"])
+        spans["decode"].append(pending["decode"])
+        spans["prep"].append(pending["prep"])
+        pending["decode"] = 0.0
+        return out
+
+    mllm_server.decode_image_b64 = decode
+    server.adapter._prep, server.adapter.generate_response = prep, generate
+    sock = make_socket_policy(host="127.0.0.1", port=server.port)
+    answers = collections.Counter()
+
+    def policy(**kw_):
+        resp = sock(**kw_)
+        answers[resp.get("raw_response")] += 1
+        return resp
+
+    out_dir = tmp / "runs"
+    try:
+        t0 = time.perf_counter()
+        (summary, n_r), syncs = counting_syncs(lambda: counted(
+            lambda: run_benchmark(env, episodes, policy,
+                                  output_dir=str(out_dir),
+                                  max_steps=SERVE_STEPS)))
+        wall = time.perf_counter() - t0
+    finally:
+        mllm_server.decode_image_b64 = orig_decode
+        server.stop()
+    steps = {}
+    for ep in episodes:
+        eid = ep["episode_id"]
+        path = out_dir / ep["scene_name"] / eid / "measurements" / f"{eid}.json"
+        steps[eid] = (json.loads(path.read_text())["episode_info"]["steps_run"]
+                      if path.exists() else None)
+    n_steps = sum(s for s in steps.values() if s)
+    n_answers = sum(answers.values())
+    per_req = [a + b + c for a, b, c in zip(spans["decode"], spans["prep"],
+                                            spans["call"])]
+    host_part = [a + b for a, b in zip(spans["decode"], spans["prep"])]
+    print(f"11b run_benchmark, the CNN served on the card, {len(episodes)} "
+          f"episodes at {NAV_W}x{NAV_H} on the 1M room (max_steps "
+          f"{SERVE_STEPS}) {card}: {json.dumps(summary)}", flush=True)
+    print(f"11b steps_run per episode {json.dumps(steps)}, answers "
+          f"{dict(answers)}, server requests {server.stats['requests']}, "
+          f"launches K1 {n_r[0]} K2 {n_r[1]}, env total_overflow "
+          f"{int(env.total_overflow)}", flush=True)
+    if n_steps:
+        print(f"11b per env step {card}: {wall * 1e3 / n_steps:.3f} ms wall "
+              f"(runner, render, JPEG, socket and policy), "
+              f"{syncs / n_steps:.2f} host syncs a step (runner and server "
+              f"threads); per policy request: p50 {percentile(per_req, 50) * 1e3:.3f}"
+              f" ms, p99 {percentile(per_req, 99) * 1e3:.3f} ms, of which "
+              f"decode + prep_frames p50 "
+              f"{percentile(host_part, 50) * 1e3:.3f} ms, p99 "
+              f"{percentile(host_part, 99) * 1e3:.3f} ms (decode p50 "
+              f"{percentile(spans['decode'], 50) * 1e3:.3f} ms) and the "
+              f"device call p50 {percentile(spans['call'], 50) * 1e3:.3f} ms,"
+              f" p99 {percentile(spans['call'], 99) * 1e3:.3f} ms (host "
+              f"clock), {n_steps} steps", flush=True)
+    check(summary["num_failures"] == 0 and summary["num_episodes"] == 4,
+          "11b: the runner ran the 4 episodes without a failure")
+    check(n_steps > 0 and n_answers == n_steps
+          and server.stats["requests"] == n_steps
+          and set(answers) <= set(tp.ACTIONS),
+          "11b: the policy server answered every runner step with an action")
+    check(int(env.total_overflow) == 0, "11b: the env's frames overflow 0")
+    check(n_r[0] == n_r[1] == n_steps, "11b: K1 and K2 once a frame")
+
+    # 11c. the micro-batching server under concurrent clients ---------------------
+    with torch.no_grad():
+        frames = [rgb_to_uint8(render(room, agent_camera(
+            xy_, yaw_, width=NAV_W, height=NAV_H, device=room.device),
+            **budget_kwargs(budgets))["rgb"]).cpu().numpy()
+            for xy_, yaw_ in probe_poses(room)[:SERVE_CLIENTS]]
+
+    def drive(port):
+        lat, got_ = [], []
+
+        def client(i):
+            c = create_vlm_client(input_type="rgb", output_type="text",
+                                  protocol="socket", host="127.0.0.1",
+                                  port=port)
+            for r in range(SERVE_REQUESTS):
+                t = time.perf_counter()
+                resp = c.query([frames[(i + r) % len(frames)]], "go",
+                               current_yaw=0.0)
+                lat.append(time.perf_counter() - t)
+                got_.append(resp.get("raw_response"))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        return time.perf_counter() - t, lat, got_
+
+    n_req = SERVE_CLIENTS * SERVE_REQUESTS
+    with tp.make_torch_policy_server(port=0, params=params,
+                                     device="cuda") as single:
+        wall_1, lat_1, got_1 = drive(single.port)
+    with from_torch_policy(params=params, max_batch=8, device="cuda",
+                           port=0) as batched:
+        wall_b, lat_b, got_b = drive(batched.port)
+    stats = dict(batched.stats)
+    for name, wall_, lat, got_ in (("unbatched", wall_1, lat_1, got_1),
+                                   ("batched", wall_b, lat_b, got_b)):
+        print(f"11c {name} server, {SERVE_CLIENTS} clients x "
+              f"{SERVE_REQUESTS} requests of one {NAV_W}x{NAV_H} JPEG "
+              f"(8-frame client history) {card}: {len(got_) / wall_:.2f} "
+              f"requests/s, latency p50 {percentile(lat, 50) * 1e3:.3f} ms, "
+              f"p99 {percentile(lat, 99) * 1e3:.3f} ms (host clock), "
+              f"answers {dict(collections.Counter(got_))}", flush=True)
+    print(f"11c batch server stats: {json.dumps(stats)}", flush=True)
+    check(len(got_b) == n_req and set(got_b) <= set(tp.ACTIONS)
+          and len(got_1) == n_req and set(got_1) <= set(tp.ACTIONS),
+          "11c: every answer of both servers is a valid action")
+    check(stats["requests"] == n_req and stats["batches"] < n_req
+          and stats["max_batch_seen"] >= 2,
+          "11c: fewer batches than requests, max_batch_seen >= 2")
+
+    # 11d. the compressed PLY path and the CLI ---------------------------------
+    arr = scene_to_numpy(room)
+    ply = tmp / "room1m_compressed.ply"
+    t0 = time.perf_counter()
+    write_compressed_ply_splat_transform(ply, arr["means"], arr["log_scales"],
+                                         arr["quats"], arr["opacity_logits"],
+                                         arr["sh"])
+    write_s = time.perf_counter() - t0
+    check(pn.native_available(), "11d: the native decoder builds and is in "
+          "use")
+    print(f"11d native decoder built with {' '.join(pn.native_flags() or ())}"
+          f" into {pn.BUILD_DIR}", flush=True)
+    t0 = time.perf_counter()
+    nat = pn.read_compressed_ply(ply, use_native=True)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = pn.read_compressed_ply(ply, use_native=False)
+    py_s = time.perf_counter() - t0
+    dec_err = max(float(np.abs(nat[k] - py[k]).max()) for k in py)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene_c = load_ply(ply, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n = scene_c.num_gaussians
+    print(f"11d compressed PLY of the 1M room {card}: "
+          f"{ply.stat().st_size / 2**20:.1f} MiB written in {write_s:.2f} s "
+          f"(tests/splat_transform_port.py); decode native {nat_s * 1e3:.1f} "
+          f"ms, Python {py_s * 1e3:.1f} ms, max |native - Python| "
+          f"{dec_err:.3e}; load_ply(device='cuda') {load_s * 1e3:.1f} ms, "
+          f"{n / load_s / 1e6:.2f} M Gaussians/s", flush=True)
+    check(dec_err <= 1e-5, "11d: the native decoder equals the Python one "
+          "(atol 1e-5, the JAX test's)")
+    b_c = autotune_all(scene_c, cam_a, pair_margin=1.05)
+    with torch.no_grad():
+        out, n_c = counted(lambda: render(scene_c, cam_a, backend="cuda",
+                                          **budget_kwargs(b_c)))
+        orig = render(room, cam_a, backend="cuda",
+                      **budget_kwargs(autotune_all(room, cam_a,
+                                                   pair_margin=1.05)))
+    diff = float((out["rgb"] - orig["rgb"]).abs().mean())
+    print(f"11d frame a of the loaded scene: overflow {int(out['overflow'])}, "
+          f"launches K1 {n_c[0]} K2 {n_c[1]}, mean |rgb - the uncompressed "
+          f"room's| {diff:.4e}", flush=True)
+    check(n == room.num_gaussians and int(out["overflow"]) == 0
+          and n_c == [1, 1] and bool(torch.isfinite(out["rgb"]).all()),
+          "11d: load_ply loads the compressed room; frame a renders with "
+          "overflow 0")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["validate-ply", str(ply)])
+    report = json.loads(buf.getvalue())
+    print(f"11d cli validate-ply: rc {rc}, failed "
+          f"{[c['check'] for c in report['checks'] if not c['ok']]}",
+          flush=True)
+    check(rc == 0, "11d: cli validate-ply exits 0 on the file")
+
+    # run-benchmark through the CLI on a compressed 20k room: with render's
+    # default budgets (the JAX CLI's env), then with --budgets from
+    # autotune_poses over the starts' views and the probe poses
+    small = tmp / "room20k_compressed.ply"
+    arr = scene_to_numpy(synthetic_room(20_000, seed=7, device="cpu"))
+    write_compressed_ply_splat_transform(small, arr["means"],
+                                         arr["log_scales"], arr["quats"],
+                                         arr["opacity_logits"], arr["sh"])
+    room_s = load_ply(small, device="cuda")
+    b_s = autotune_poses(room_s, stack_cameras([
+        agent_camera(xy_, yaw_, width=640, height=480, device=dev)
+        for xy_, yaw_ in probe_poses(room_s) + start_views]),
+        pair_margin=1.5)
+    (tmp / "budgets.json").write_text(json.dumps(b_s))
+    del room_s
+    for label, extra in (("render's defaults", []),
+                         ("--budgets", ["--budgets",
+                                        str(tmp / "budgets.json")])):
+        buf = io.StringIO()
+        with tp.make_torch_policy_server(port=0, params=params,
+                                         device="cuda") as srv:
+            with contextlib.redirect_stdout(buf):
+                rc, n_cli = counted(lambda: cli.main([
+                    "run-benchmark", "--scene", str(small), "--map",
+                    str(map_path), "--test-json", str(traj), "--output-dir",
+                    str(tmp / f"cli{len(extra)}"), "--port", str(srv.port),
+                    "--max-episodes", "1", "--max-steps", "20"] + extra))
+        ovf = [int(line.split()[-1]) for line in buf.getvalue().splitlines()
+               if line.startswith("[INFO] total_overflow")]
+        print(f"11d cli run-benchmark on the compressed 20k room at 640x480, "
+              f"{label}: rc {rc}, total_overflow {ovf}, server requests "
+              f"{srv.stats['requests']}, launches K1 {n_cli[0]} K2 "
+              f"{n_cli[1]}", flush=True)
+        check(rc == 0 and len(ovf) == 1 and srv.stats["requests"] > 0,
+              f"11d: cli run-benchmark ({label}) exits 0 against the torch "
+              "policy server and prints total_overflow")
+    print(f"11d --budgets: {json.dumps(b_s)}", flush=True)
+    check(ovf == [0], "11d: with --budgets the CLI's frames overflow 0")
+    tmpdir.cleanup()
+    return launched
+
+
+def adc_training(target, card) -> dict:
+    """Phase 12, ADC training (see the module docstring):
+    ``fit_scene_adaptive(backend="cuda")`` with each train step and each
+    ``densify_prune`` round observed through the trainer module's names.
+    Returns K1-K4's launches over its steps, each step counted from 0 just
+    before it and read just after."""
+    import numpy as np
+    import torch
+    from sage3d_tpu_torch.ops import binning, composite_cuda, segreduce
+    from sage3d_tpu_torch.parallel import trainer as tr
+    from sage3d_tpu_torch.parallel.densify import DensifyState
+    from sage3d_tpu_torch.renderer.camera import make_camera, stack_cameras
+    from sage3d_tpu_torch.renderer.render import (autotune_poses,
+                                                  budget_kwargs, render)
+    from sage3d_tpu_torch.renderer.scene import importance_subset
+
+    dev = target.device
+    names = ("emit", "composite_fwd", "composite_bwd", "segreduce")
+    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd,
+               composite_cuda.composite_bwd, segreduce.segment_reduce_sorted)
+    cams_l = []
+    for i in range(ADC_VIEWS):
+        ang = 2 * np.pi * i / ADC_VIEWS + np.pi / 4
+        cams_l.append(make_camera(
+            [3.0 * np.cos(ang), 3.0 * np.sin(ang), 1.4],
+            [-np.cos(ang), -np.sin(ang), -0.1], width=ADC_W, height=ADC_H,
+            device=dev))
+    cams = stack_cameras(cams_l)
+    budgets = autotune_poses(target, cams, pair_margin=1.5)
+    bk = budget_kwargs(budgets)
+    print(f"12 budgets (autotune_poses, {ADC_VIEWS} orbit views, pair_margin "
+          f"1.5): {json.dumps(budgets)}", flush=True)
+    with torch.no_grad():
+        outs = [render(target, c, backend="cuda", **bk) for c in cams_l]
+    targets = torch.stack([o["rgb"] for o in outs])
+    check(all(int(o["overflow"]) == 0 for o in outs),
+          "12: the targets render with overflow 0")
+    start = importance_subset(target, ADC_START)
+
+    def overflow_of(params_or_scene) -> list:
+        scene = params_or_scene
+        with torch.no_grad():
+            return [int(render(scene, c, backend="cuda", **bk)["overflow"])
+                    for c in cams_l]
+
+    pc_only = {"pair_capacity": bk["pair_capacity"],
+               "tile_capacity": bk["tile_capacity"]}
+    with torch.no_grad():
+        default_tiers = [int(render(tr.with_capacity(start, ADC_N), c,
+                                    backend="cuda", **pc_only)["overflow"])
+                         for c in cams_l]
+    ovf_start = overflow_of(tr.with_capacity(start, ADC_N))
+    print(f"12 start: importance_subset({ADC_N}, {ADC_START}) at capacity "
+          f"{ADC_N}: overflow per view {ovf_start} with the budgets, "
+          f"{default_tiers} with only pair_capacity and tile_capacity "
+          f"(render's default emission tiers)", flush=True)
+
+    steps, rounds, resets = [], [], []
+    real_make, real_dp, real_zero = (tr.make_train_step, tr.densify_prune,
+                                     tr.zero_opacity_moments)
+
+    def make_train_step(*a, **k):
+        step_fn, opt = real_make(*a, **k)
+        real_adc = step_fn.adc
+
+        def adc(state, cam_batch, tgt):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out, n = launches_of(kernels, lambda: real_adc(state, cam_batch,
+                                                           tgt))
+            ev[1].record()
+            steps.append({"launches": n, "events": ev, "loss": out[1],
+                          "opt": out[0].opt_state, "params": out[0].params})
+            return out
+
+        step_fn.adc = adc
+        return step_fn, opt
+
+    def densify_prune(params, dstate, gen, cfg, opt_state=None,
+                      semantic_ids=None):
+        cpu_params = {k: v.detach().cpu().clone() for k, v in params.items()}
+        cpu_state = DensifyState(dstate.grad_accum.cpu(), dstate.n_steps)
+        cpu_gen = torch.Generator()
+        cpu_gen.set_state(gen.get_state())
+        avg = dstate.grad_accum / max(dstate.n_steps, 1)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out, n = launches_of(kernels, lambda: real_dp(
+            params, dstate, gen, cfg, opt_state=opt_state,
+            semantic_ids=semantic_ids))
+        ev[1].record()
+        ev[1].synchronize()
+        cpu = real_dp(cpu_params, cpu_state, cpu_gen, cfg,
+                      semantic_ids=semantic_ids.cpu())
+        info = {k: int(v) for k, v in out[4].items()}
+        same_info = info == {k: int(v) for k, v in cpu[4].items()}
+        bitwise = all(torch.equal(out[0][k].detach().cpu(), cpu[0][k])
+                      for k in ("quats", "opacity_logits", "sh")) \
+            and torch.equal(out[3].cpu(), cpu[3])
+
+        def ulps(k):
+            a = out[0][k].detach().cpu().contiguous().view(torch.int32)
+            b = cpu[0][k].contiguous().view(torch.int32)
+            return int((a.long() - b.long()).abs().max())
+
+        u_ls = ulps("log_scales")
+        mu_card = out[0]["means"].detach().cpu()
+        mu_diff = int((mu_card != cpu[0]["means"]).any(-1).sum())
+        mu_abs = float((mu_card - cpu[0]["means"]).abs().max())
+        scene = tr.with_params(tr.with_capacity(start, ADC_N),
+                               {k: v.detach() for k, v in params.items()})
+        rounds.append({"info": info, "ms": ev[0].elapsed_time(ev[1]),
+                       "launches": n, "same_info": same_info,
+                       "bitwise": bitwise, "ulp_log_scales": u_ls,
+                       "means_max_abs_diff": mu_abs,
+                       "means_rows_differ": mu_diff,
+                       "overflow": overflow_of(scene),
+                       "avg_grad_q": [float(q) for q in torch.quantile(
+                           avg[avg > 0][:1 << 20].float(),
+                           torch.tensor([0.1, 0.5, 0.9], device=dev))]
+                       if bool((avg > 0).any()) else []})
+        return out
+
+    def zero_opacity_moments(opt_state):
+        out = real_zero(opt_state)
+        op = [g["params"][0] for g in opt_state.param_groups
+              if g.get("name") == "opacity_logits"][0]
+        others = [g["params"][0] for g in opt_state.param_groups
+                  if g.get("name") != "opacity_logits"]
+        resets.append({
+            "step": len(steps),
+            "opacity_zero": all(float(v.abs().max()) == 0.0
+                                for k, v in opt_state.state[op].items()
+                                if k != "step"),
+            "others_kept": all(float(opt_state.state[p]["exp_avg_sq"].abs()
+                                     .max()) > 0 for p in others)})
+        return out
+
+    cfg = tr.TrainerConfig(steps=ADC_STEPS, log_every=ADC_EVERY,
+                           backend="cuda", group_lrs=True,
+                           pair_capacity=budgets["pair_capacity"],
+                           tile_capacity=budgets["tile_capacity"],
+                           budgets=budgets)
+    adaptive = tr.AdaptiveConfig(densify_every=ADC_EVERY,
+                                 opacity_reset_every=ADC_RESET,
+                                 grad_threshold=ADC_GRAD)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr.make_train_step, tr.densify_prune, tr.zero_opacity_moments = \
+        make_train_step, densify_prune, zero_opacity_moments
+    t0 = time.perf_counter()
+    try:
+        fitted, history = tr.fit_scene_adaptive(
+            start, cams, targets, cfg, adaptive, capacity=ADC_N, seed=0,
+            verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        tr.make_train_step, tr.densify_prune, tr.zero_opacity_moments = \
+            real_make, real_dp, real_zero
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+
+    losses = [float(s["loss"]) for s in steps]
+    step_ms = [s["events"][0].elapsed_time(s["events"][1]) for s in steps]
+    every = all(all(x > 0 for x in s["launches"]) for s in steps)
+    per_step = [s["launches"] for s in steps]
+    total = [sum(c[i] for c in per_step) for i in range(4)]
+    opt0 = steps[0]["opt"]
+    same_adam = all(s["opt"] is opt0 for s in steps) and all(
+        g["params"][0] is steps[-1]["params"][g["name"]]
+        for g in opt0.param_groups)
+    adam_steps = int(opt0.state[steps[-1]["params"]["means"]]["step"])
+    ovf_end = overflow_of(fitted)
+    # the loss between control events: densify rounds after steps
+    # ADC_EVERY, 2 * ADC_EVERY, ... and the opacity reset after ADC_RESET
+    cuts = sorted({0, len(losses)} | {e for e in range(
+        ADC_EVERY, len(losses), ADC_EVERY)} | {ADC_RESET})
+    segments = [(a, b - 1, losses[a], losses[b - 1])
+                for a, b in zip(cuts, cuts[1:])]
+    med = statistics.median(step_ms[3:])
+    mpix = ADC_VIEWS * ADC_W * ADC_H / (med * 1e3)
+    for r in rounds:
+        print(f"12 densify_prune round {card}: {json.dumps(r)}", flush=True)
+    print(f"12 losses {[f'{v:.5e}' for v in losses]}", flush=True)
+    print(f"12 fit_scene_adaptive, {ADC_STEPS} steps of {ADC_VIEWS} views at "
+          f"{ADC_W}x{ADC_H}, capacity {ADC_N}, start {ADC_START} {card}: "
+          f"{wall:.2f} s wall; step {med:.3f} ms median of steps 4-"
+          f"{len(step_ms)} (CUDA events), {mpix:.2f} Mpix/s; launches a step "
+          f"{dict(zip(names, per_step[0]))} (first) "
+          f"{dict(zip(names, per_step[-1]))} (last); densify_prune "
+          f"{[round(r['ms'], 3) for r in rounds]} ms a round, launches "
+          f"{[r['launches'] for r in rounds]}; resets {resets}; Adam steps "
+          f"{adam_steps}; overflow start {ovf_start}, end {ovf_end}; peak "
+          f"device memory {peak / 2**30:.2f} GiB above what was held; "
+          f"history {json.dumps(history)}", flush=True)
+    print(f"12 loss between control events (first step, last step, loss, "
+          f"loss): {segments}", flush=True)
+    check(every and len(steps) == ADC_STEPS,
+          "12: every ADC step launched K1-K4")
+    check(all(np.isfinite(losses)) and all(b < a for _, _, a, b in segments),
+          "12: the loss stays finite and falls between control events")
+    alive = [r["info"]["n_alive"] for r in rounds]
+    check(len(rounds) == ADC_STEPS // ADC_EVERY
+          and all(b > a for a, b in zip([ADC_START] + alive, alive)),
+          f"12: n_alive grows across the rounds ({alive})")
+    check(sum(ovf_start) == 0 and sum(ovf_end) == 0
+          and all(sum(r["overflow"]) == 0 for r in rounds),
+          "12: renders of the start, after each round and of the end "
+          "overflow 0")
+    check(same_adam and adam_steps == ADC_STEPS and len(resets) == 1
+          and resets[0]["opacity_zero"] and resets[0]["others_kept"],
+          "12: one Adam steps throughout; its opacity moments are zero right "
+          "after the reset, the others kept")
+    check(all(r["same_info"] and r["bitwise"] and r["ulp_log_scales"] <= 1
+              and r["means_max_abs_diff"] <= SPLIT_MEAN_TOL
+              and r["means_rows_differ"] <= r["info"]["n_split"]
+              for r in rounds),
+          "12: densify_prune on the card equals it on a CPU copy (counters, "
+          "ids, quats, opacities, SH bitwise; log_scales within 1 ulp; only "
+          f"split offspring's means differ, within {SPLIT_MEAN_TOL})")
+
+    # the device's busy time and idle share of a step, on the fitted scene
+    step_fn, opt = real_make(fitted, cams_l[0], mesh=cfg.mesh_shape,
+                             optimizer=cfg.make_opt(), backend="cuda",
+                             **cfg.render_kw())
+    state = tr.init_train_state(fitted, opt)
+    busy, n_ops, top = device_busy(lambda: step_fn.adc(state, cams, targets),
+                                   reps=5)
+    prof_ms = cuda_ms(lambda: step_fn.adc(state, cams, targets), reps=5,
+                      warmup=1)
+    print(f"12 a step on the fitted scene {card}: {prof_ms:.3f} ms (CUDA "
+          f"events, median of 5), device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / prof_ms:.3f}, {n_ops:.0f} kernels and copies a step; "
+          f"top {json.dumps(top)}", flush=True)
+    return dict(zip(names, total))
 
 
 def main() -> int:
@@ -2124,7 +2773,8 @@ def main() -> int:
     # 9. the navigation path --------------------------------------------------------
     script_peak = max(script_peak, torch.cuda.max_memory_allocated())
     t0 = time.perf_counter()
-    launches_nav, nav_peak = navigation(frames["a_1080p_1M"][0], card)
+    launches_nav, nav_peak, nav_budgets = navigation(frames["a_1080p_1M"][0],
+                                                     card)
     print(f"navigation phase {card}: {time.perf_counter() - t0:.1f} s, "
           f"launches K1 {launches_nav[0]} K2 {launches_nav[1]}, peak device "
           f"memory {nav_peak / 2**30:.2f} GiB", flush=True)
@@ -2137,6 +2787,20 @@ def main() -> int:
     print(f"data phase {card}: {time.perf_counter() - t0:.1f} s, launches "
           f"K1 {launches_data[0]} K2 {launches_data[1]}", flush=True)
     script_peak = max(script_peak, torch.cuda.max_memory_allocated())
+
+    # 11. serving ---------------------------------------------------------------------
+    t0 = time.perf_counter()
+    launches_serve = serving(frames["a_1080p_1M"][0], cam_a, nav_budgets, card)
+    print(f"serving phase {card}: {time.perf_counter() - t0:.1f} s, launches "
+          f"K1 {launches_serve[0]} K2 {launches_serve[1]}", flush=True)
+    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
+
+    # 12. ADC training ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    launches_adc = adc_training(frames["c_env_640x480_200k"][0], card)
+    print(f"ADC phase {card}: {time.perf_counter() - t0:.1f} s, launches "
+          f"{json.dumps(launches_adc)}", flush=True)
+    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
     print(f"peak device memory {card}: {script_peak / 2**30:.2f} GiB for the "
           f"script, {peak_b / 2**30:.2f} GiB at frame b's render", flush=True)
 
@@ -2145,7 +2809,8 @@ def main() -> int:
          "source": "sage3d_tpu_torch/csrc/emit.cu",
          "replaces": "sage3d_tpu/ops/binning.py:153",
          "launches": launches["emit"] + launches_train["emit"]
-         + launches_bench["emit"] + launches_nav[0] + launches_data[0],
+         + launches_bench["emit"] + launches_nav[0] + launches_data[0]
+         + launches_serve[0] + launches_adc["emit"],
          "max_abs_err": 0.0 if k1_equal else None,
          "ms": k1_ms, "back_to_back_ms": dev_ms["K1"],
          "host_ms": host_ms["K1"],
@@ -2156,7 +2821,8 @@ def main() -> int:
          "replaces": "sage3d_tpu/ops/composite_pallas.py:156",
          "launches": launches["composite_fwd"]
          + launches_train["composite_fwd"] + launches_bench["composite_fwd"]
-         + launches_nav[1] + launches_data[1],
+         + launches_nav[1] + launches_data[1] + launches_serve[1]
+         + launches_adc["composite_fwd"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "back_to_back_ms": dev_ms["K2"],
          "host_ms": host_ms["K2"],
@@ -2166,7 +2832,8 @@ def main() -> int:
          "source": "sage3d_tpu_torch/csrc/composite_bwd.cu",
          "replaces": "sage3d_tpu/ops/composite_pallas.py:249",
          "launches": launches_train["composite_bwd"]
-         + launches_bench["composite_bwd"], "max_abs_err": k3_err,
+         + launches_bench["composite_bwd"] + launches_adc["composite_bwd"],
+         "max_abs_err": k3_err,
          "ms": k3_ms, "back_to_back_ms": dev_ms["K3"],
          "host_ms": host_ms["K3"],
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
@@ -2174,7 +2841,8 @@ def main() -> int:
         {"name": "K4 segment_reduce_sorted", "route": "cuda",
          "source": "sage3d_tpu_torch/csrc/segreduce.cu",
          "replaces": "sage3d_tpu/ops/segreduce.py:55",
-         "launches": launches_train["segreduce"] + launches_bench["segreduce"],
+         "launches": launches_train["segreduce"] + launches_bench["segreduce"]
+         + launches_adc["segreduce"],
          "max_abs_err": k4_err,
          "ms": k4_ms, "back_to_back_ms": dev_ms["K4"],
          "host_ms": host_ms["K4"],

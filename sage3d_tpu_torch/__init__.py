@@ -11,8 +11,13 @@ scene training (``parallel/``: train step, checkpoints, ``fit_scene``); the
 closed-loop navigation path (``ops/collision.py`` capsule queries,
 ``physics/`` occupancy grid and agent, ``env/`` the VLN env and rollouts,
 ``bench/`` the SAGE-Bench runner with its tasks and measures, ``serve/`` the
-policy wire protocol); and its measurement scripts (``benchmarks/``: the
-fwd+bwd bench and the K2 anatomy probe, kernel ``csrc/composite_anatomy.cu``).
+policy wire protocol); policy serving (``serve/``: the MLLM server and its
+adapters, the CNN policy on the card, the micro-batching server); adaptive
+density control (``parallel/densify.py``, ``fit_scene_adaptive``); the
+compressed-PLY reader (``utils/plyio_native.py``, host C++); the command line
+(``python -m sage3d_tpu_torch.cli``); and its measurement scripts
+(``benchmarks/``: the fwd+bwd bench and the K2 anatomy probe, kernel
+``csrc/composite_anatomy.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

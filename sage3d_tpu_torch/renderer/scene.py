@@ -172,7 +172,9 @@ def load_ply(path, max_sh_degree: int = 3, semantic_ids=None,
              device=None) -> GaussianScene:
     """Load a standard 3DGS PLY (x/y/z, f_dc_*, f_rest_*, opacity, scale_*,
     rot_*). ``rot_*`` is (w, x, y, z); scales and opacities are already in
-    log/logit space. The PlayCanvas compressed layout is not read here."""
+    log/logit space. A PlayCanvas compressed 3DGS PLY (InteriorGS's
+    ``3dgs_compressed.ply``) is recognised by its header and decoded by
+    ``utils/plyio_native.load_compressed_ply``."""
     path = Path(path)
     head = b""
     with open(path, "rb") as f:
@@ -182,8 +184,13 @@ def load_ply(path, max_sh_degree: int = 3, semantic_ids=None,
                 break
             head += chunk
     if b"packed_position" in head.split(b"end_header")[0]:
-        raise NotImplementedError(
-            f"{path}: compressed 3DGS PLY is not supported by this package yet")
+        from ..utils.plyio_native import load_compressed_ply
+        scene = load_compressed_ply(path, device=device)
+        if semantic_ids is not None:
+            scene = scene._replace(semantic_ids=torch.as_tensor(
+                np.asarray(semantic_ids), dtype=torch.int32,
+                device=scene.means.device))
+        return scene
     with open(path, "rb") as f:
         fmt, n, props = _parse_ply_header(f)
         if fmt not in ("binary_little_endian",):

@@ -428,3 +428,94 @@ def test_waypoint_images_on_the_card_match_cpu(tmp_path):
     diff = (card - frames["cpu", "torch"]).abs()
     assert float((diff > 5e-4).float().mean()) <= 1e-3
     assert float(diff.max()) < 1 / 255
+
+
+TF32_REL = 1e-2     # CNN logits, card vs CPU, over max |logit|: cuDNN may
+                    # run the convolutions in TF32 (10-bit mantissa)
+
+
+def test_cnn_policy_on_the_card_matches_cpu():
+    """The serving CNN at its defaults (96x128, 4 frames): the card's logits
+    within the TF32 tolerance of the CPU's on the same weights, and the same
+    action wherever the top two logits are further apart than that."""
+    from sage3d_tpu_torch.serve import torch_policy as tp
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the policy's device path")
+    params = tp.init_cnn_policy(device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+    card = {k: v.cuda() for k, v in params.items()}
+    x = torch.rand((8, 4, 96, 128, 3),
+                   generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = tp.CNNPolicy(params)(x)
+        got = tp.CNNPolicy(card)(x.cuda()).cpu()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= TF32_REL * scale
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * TF32_REL * scale
+    assert torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
+
+
+def test_densify_prune_on_the_card_equals_cpu():
+    """One density-control round on the card and on a CPU copy with the same
+    generator seed: counters and semantic ids equal, rows bitwise but for
+    the exp/log rounding (log_scales within 1 ulp, the offspring means
+    within 1e-6)."""
+    from sage3d_tpu_torch.parallel.densify import (DEAD_LOGIT, DensifyConfig,
+                                                   DensifyState,
+                                                   densify_prune)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the round's device path")
+    n = 200_000
+    g = torch.Generator().manual_seed(3)
+    params = {"means": torch.rand((n, 3), generator=g) * 8 - 4,
+              "log_scales": torch.log(torch.rand((n, 3), generator=g) * 0.2
+                                      + 0.005),
+              "quats": torch.randn((n, 4), generator=g),
+              "opacity_logits": torch.rand((n,), generator=g) * 10 - 7,
+              "sh": torch.randn((n, 4, 3), generator=g)}
+    params["opacity_logits"][torch.rand((n,), generator=g) < 0.3] = DEAD_LOGIT
+    accum = torch.rand((n,), generator=g) * 1e-3
+    sem = torch.randint(-1, 9, (n,), generator=g, dtype=torch.int32)
+    cfg = DensifyConfig(split_scale=0.1)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.clone().to(dev) for k, v in params.items()}
+        outs[dev] = densify_prune(p, DensifyState(accum.to(dev), 4),
+                                  torch.Generator().manual_seed(11), cfg,
+                                  semantic_ids=sem.to(dev))
+    (pc, _, _, sc, ic), (pg, _, _, sg, ig) = outs["cpu"], outs["cuda"]
+    assert {k: int(v) for k, v in ic.items()} == \
+        {k: int(v) for k, v in ig.items()}
+    assert int(ic["n_split"]) > 0 and int(ic["n_clone"]) > 0
+    assert torch.equal(sc, sg.cpu())
+    for k in ("quats", "opacity_logits", "sh"):
+        assert torch.equal(pc[k], pg[k].cpu()), k
+    np.testing.assert_array_max_ulp(pc["log_scales"].numpy(),
+                                    pg["log_scales"].cpu().numpy(), maxulp=1)
+    means_c, means_g = pc["means"], pg["means"].cpu()
+    assert float((means_c - means_g).abs().max()) <= 1e-6
+    assert float((means_c != means_g).sum()) <= 3 * int(ic["n_split"])
+
+
+def test_native_decoder_builds_into_build_native():
+    """The compressed-PLY decoder is built from native/compressed_ply.cpp
+    into build/native/ on the card's host and agrees with the Python one."""
+    from pathlib import Path
+
+    from sage3d_tpu_torch.utils import plyio_native as pn
+    if not torch.cuda.is_available():
+        pytest.skip("needs the card's host: its native build")
+    lib = pn.load_native()
+    assert Path(lib._name).parent == pn.BUILD_DIR
+    rng = np.random.default_rng(0)
+    chunk = np.sort(rng.uniform(-3, 3, (4, 18)).astype(np.float32), axis=1)
+    chunk = np.concatenate([chunk[:, :3], chunk[:, 9:12], chunk[:, 3:6],
+                            chunk[:, 12:15], chunk[:, 6:9], chunk[:, 15:18]],
+                           axis=1)
+    packed = rng.integers(0, 2**32, (1000, 4), dtype=np.uint64).astype(
+        np.uint32)
+    a = pn.decode_compressed(chunk, packed, use_native=True)
+    b = pn.decode_compressed(chunk, packed, use_native=False)
+    for k in a:
+        np.testing.assert_allclose(a[k], b[k], atol=1e-5, err_msg=k)
