@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render, training, navigation, data, serving and
-density-control paths on one CUDA card, at full size.
+"""Drive the PyTorch port's render, training, navigation, data, serving,
+density-control and sharded paths on one CUDA card, at full size.
 
     python3 chip_smoke.py
 
@@ -155,7 +155,29 @@ no result line):
      Adam throughout with the opacity moments zero after the reset, each
      ``densify_prune`` round equal to it on a CPU copy with the same
      generator state; step ms, Mpix/s, round ms, launches, device busy and
-     idle share of a step, peak memory.
+     idle share of a step, peak memory;
+ 13. the sharded path (``sharded_path``), its ranks processes that share
+     the card over gloo (NCCL refuses two ranks on one device, so their
+     collectives run through the host, not NVLink), each run counting K1-K4
+     on the ranks from 0: 13a, frame a through ``render_tile_sharded`` on
+     (1, 2) and (1, 4) meshes: overflow 0 in every band, K1 and K2 once a
+     band, rgb/alpha within ``K2_ATOL`` of phase 5's unsharded frame, and
+     the tiles whose k_end differs; ms a frame and its split (scene gather,
+     band render, band gather); 13b, the sharded train step through
+     ``dryrun_multihost`` on (1, 2), (2, 1) and (2, 2) meshes (hosts x ranks
+     a host) with frame a's camera and one 0.3 m beside it at 1920x1080, the
+     group Adam and 4 gather buckets: every rank's losses bitwise equal (the
+     dry run raises otherwise), the first step's gathered gradients within
+     5e-4 of each group's max of the direct step's, the loss falling,
+     ``SHARD_COUNTS`` collectives a step, N / n_tile shard rows, overflow 0
+     with the first and last parameters; step ms split into collectives,
+     Adam and the rest, bytes, transport and peak memory a rank; 13c, the
+     collective path on a one-rank NCCL mesh (``force_shard_map``) bitwise
+     the direct step over 3 steps at frame a, and its cost a step; 13d,
+     ``fit_scene_adaptive`` on a (1, 2) mesh at cell adc's sizes (20 steps,
+     rounds after 10 and 20): the trainer's bitwise check of every rank's
+     scene after each round, the fitted scenes bitwise equal, the loss
+     falling between rounds; step and round ms.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -247,6 +269,24 @@ ADC_GRAD = 1e-7         # grad_threshold on the mean |d loss / d mean| (the
 SPLIT_MEAN_TOL = 1e-6   # split offspring means, card vs CPU: exp and the
                         # rotation's 3-term sums round differently there
 
+# Phase 13, the sharded path: the ranks of a mesh are processes sharing the
+# one card, joined over gloo (NCCL refuses two ranks on one device), so their
+# collectives run through the host, not NVLink.
+SHARD_MESHES = ((1, 2), (1, 4))   # 13a: band rendering
+SHARD_FRAMES = 10       # 13a: frames timed a mesh (CUDA events on rank 0)
+SHARD_STEP_MESHES = ((1, 2), (2, 1), (2, 2))  # 13b: hosts x ranks a host
+SHARD_STEPS = 8         # 13b: 2 warm-ups, 5 timed, the last with collective
+                        # times (the device synchronized around each)
+SHARD_CAM_OFFSET = 0.3  # 13b: the second camera, beside frame a's (m)
+SHARD_COUNTS = {"all_gather": 20, "reduce_scatter": 20, "all_reduce": 5,
+                "loss_all_reduce": 1}   # a step, grad_buckets 4: JAX's
+                        # written counts (MULTICHIP_r05.json) and the loss
+ONE_RANK_STEPS = 3      # 13c: steps held bitwise, direct vs one-rank NCCL
+ONE_RANK_TIMED = 9      # 13c: steps timed each way, in turns, after 2
+                        # warm-ups
+ADC_MESH_STEPS, ADC_MESH_EVERY = 20, 10   # 13d: rounds after 10 and 20
+SHARD_TIMEOUT = 600     # a spawned mesh or a dry run (s)
+
 MEASURES = {"distance_to_goal", "success", "oracle_success", "path_length",
             "spl", "navigation_error", "collision_count",
             "continuous_success_ratio", "integrated_collision_penalty",
@@ -305,6 +345,22 @@ def back_to_back_ms(fn, reps: int = 20):
     return a.elapsed_time(b) / reps, host
 
 
+BENCH_CAM = dict(position=[0.0, -6.0, 1.5], forward=[0.0, 1.0, -0.05],
+                 focal_mm=14.0)     # bench.py:228-229's camera
+FRAME_A = (1_000_000, 1920, 1080)   # frame a: Gaussians, width, height
+
+
+def frame_a(device):
+    """Frame a: ``synthetic_room(1_000_000, seed=0)`` and bench.py's camera
+    at 1920x1080."""
+    from sage3d_tpu_torch.renderer.camera import make_camera
+    from sage3d_tpu_torch.renderer.scene import synthetic_room
+    n, width, height = FRAME_A
+    return (synthetic_room(n, seed=0, device=device),
+            make_camera(width=width, height=height, **BENCH_CAM,
+                        device=device))
+
+
 def smoke_frames(device) -> dict:
     """The three frames, as label -> (scene, camera):
 
@@ -316,12 +372,11 @@ def smoke_frames(device) -> dict:
     """
     from sage3d_tpu_torch.renderer.camera import agent_camera, make_camera
     from sage3d_tpu_torch.renderer.scene import synthetic_room
-    room = synthetic_room(1_000_000, seed=0, device=device)
-    bench_cam = dict(position=[0.0, -6.0, 1.5], forward=[0.0, 1.0, -0.05],
-                     focal_mm=14.0, device=device)
+    room, cam_a = frame_a(device)
     return {
-        "a_1080p_1M": (room, make_camera(width=1920, height=1080, **bench_cam)),
-        "b_4k_1M": (room, make_camera(width=3840, height=2160, **bench_cam)),
+        "a_1080p_1M": (room, cam_a),
+        "b_4k_1M": (room, make_camera(width=3840, height=2160,
+                                      **BENCH_CAM, device=device)),
         "c_env_640x480_200k": (
             synthetic_room(200_000, seed=7, device=device),
             agent_camera((0.0, -3.5), yaw=1.57, width=640, height=480,
@@ -1999,6 +2054,390 @@ def adc_training(target, card) -> dict:
     return dict(zip(names, total))
 
 
+# --- phase 13: the sharded path -----------------------------------------------
+# The workers run on the ranks of a mesh (spawn_mesh starts them, one process
+# each, and passes the mesh as the keyword ``mesh``); they return rank 0's
+# view.
+
+def _rank_stats(mesh, values) -> list:
+    """``values`` (ints) of every rank, rank-major, gathered."""
+    import torch
+    from sage3d_tpu_torch.parallel.mesh import all_gather
+    t = torch.tensor([list(values)], dtype=torch.int64, device=mesh.device)
+    return all_gather(t, mesh, None, tag="report").tolist()
+
+
+def _events_ms(fn) -> float:
+    import torch
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def band_worker(budgets, mesh=None) -> dict:
+    """13a on one rank: frame a through ``render_tile_sharded`` (counters of
+    K1 and K2 from 0 around the first frame), this band's k_end through the
+    same projection, binning and K2, then frames timed without and with the
+    collectives' times."""
+    import torch
+    from sage3d_tpu_torch.ops import binning, composite_cuda as cc
+    from sage3d_tpu_torch.ops.projection import project_gaussians
+    from sage3d_tpu_torch.parallel.mesh import all_gather
+    from sage3d_tpu_torch.parallel.sharded_render import (band_height,
+                                                          render_tile_sharded)
+    from sage3d_tpu_torch.renderer.render import budget_kwargs, render
+    room, cam = frame_a(mesh.device)
+    bk = budget_kwargs(budgets)
+    kernels = (binning.emit_tile_pairs, cc.composite_fwd)
+
+    def frame():
+        with torch.no_grad():
+            return render_tile_sharded(room, cam, mesh, backend="cuda", **bk)
+
+    torch.cuda.synchronize()
+    for fn in kernels:
+        fn.launches = 0
+    out = frame()
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in kernels]
+    band_h = band_height(cam.height, mesh.shape["tile"])
+    y0 = mesh.axis_index("tile") * band_h
+    with torch.no_grad():
+        band_cam = cam._replace(cy=cam.cy - y0, height=band_h)
+        proj = project_gaussians(room, band_cam,
+                                 clamp_dims=(cam.width, cam.height))
+        bins = binning.bin_gaussians(proj, cam.width, band_h, **{
+            k: bk[k] for k in binning.EMIT_BUDGET_KEYS})
+        pg, start, count, _ = cc.trim_to_capacity(bins, bk["pair_capacity"])
+        _, kend = cc.composite_fwd(
+            cc.attribute_table(proj, room.semantic_ids), pg, start,
+            torch.clamp(count, max=bk["tile_capacity"]), bins.tiles_x)
+        band_overflow = int(render(room, band_cam, backend="cuda",
+                                   clamp_dims=(cam.width, cam.height),
+                                   **bk)["overflow"])
+    kends = all_gather(kend.to(torch.int32), mesh, "tile", tag="report")
+    for _ in range(2):
+        frame()
+    frame_ms = statistics.median(_events_ms(frame)
+                                 for _ in range(SHARD_FRAMES))
+    mesh.counter.reset()
+    mesh.counter.timed = True
+    timed_ms = statistics.median(_events_ms(frame) for _ in range(3))
+    mesh.counter.timed = False
+    split = {tag: mesh.counter.summary(tag) for tag in ("scene", "band")}
+    ranks = _rank_stats(mesh, launches + [
+        band_overflow, torch.cuda.max_memory_allocated(mesh.device)])
+    return {"rgb": out["rgb"], "alpha": out["alpha"],
+            "semantic": out["semantic"], "overflow": int(out["overflow"]),
+            "kend": kends, "band_h": band_h, "frame_ms": frame_ms,
+            "timed_frame_ms": timed_ms,
+            "gather_ms": sum(k["ms"] for k in split["scene"].values()) / 3,
+            "band_gather_ms": sum(k["ms"] for k in split["band"].values()) / 3,
+            "bytes": sum(k["bytes"] for v in split.values()
+                         for k in v.values()) // 3,
+            "transport": mesh.transport, "ranks": ranks}
+
+
+def _noisy(scene, seed: int = 1):
+    """Phase 5b's start: seeded noise on SH (sigma 1) and opacity logits
+    (sigma 0.5)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    dev = scene.device
+    return scene._replace(
+        sh=scene.sh + torch.from_numpy(rng.normal(
+            0.0, 1.0, tuple(scene.sh.shape)).astype(np.float32)).to(dev),
+        opacity_logits=scene.opacity_logits + torch.from_numpy(rng.normal(
+            0.0, 0.5, tuple(scene.opacity_logits.shape)).astype(
+                np.float32)).to(dev))
+
+
+def one_rank_worker(budgets, mesh=None) -> dict:
+    """13c on a one-rank NCCL mesh: the direct step and the collective path
+    (``force_shard_map``) from the same start at frame a, ``ONE_RANK_STEPS``
+    each (K1-K4 counted from 0 around them), then timed."""
+    import torch
+    from sage3d_tpu_torch.ops import binning, composite_cuda as cc, segreduce
+    from sage3d_tpu_torch.parallel import train
+    from sage3d_tpu_torch.renderer.camera import stack_cameras
+    from sage3d_tpu_torch.renderer.render import budget_kwargs, render
+    room, cam = frame_a(mesh.device)
+    bk = budget_kwargs(budgets)
+    with torch.no_grad():
+        target = render(room, cam, backend="cuda", **bk)["rgb"][None]
+    start, cams = _noisy(room), stack_cameras([cam])
+    opt = train.make_group_optimizer(extent=1.0)
+    kernels = (binning.emit_tile_pairs, cc.composite_fwd, cc.composite_bwd,
+               segreduce.segment_reduce_sorted)
+    runs = {}
+    for name, kw in (("direct", {}),
+                     ("one-rank mesh", {"mesh": mesh,
+                                        "force_shard_map": True})):
+        step, _ = train.make_train_step(start, cam, optimizer=opt,
+                                        backend="cuda", **kw, **bk)
+        state = train.init_train_state(start, opt, kw.get("mesh"))
+        torch.cuda.synchronize()
+        for fn in kernels:
+            fn.launches = 0
+        mesh.counter.reset()
+        losses = [float(step(state, cams, target)[1])
+                  for _ in range(ONE_RANK_STEPS)]
+        runs[name] = {"step": step, "state": state, "losses": losses,
+                      "counts": mesh.counter.counts(), "ms": [],
+                      "params": {k: v.detach().clone()
+                                 for k, v in state.params.items()},
+                      "launches": [fn.launches for fn in kernels]}
+    # timed in turns, direct and mesh, after 2 warm-ups each
+    for i in range(2 + ONE_RANK_TIMED):
+        for r in runs.values():
+            ms = _events_ms(lambda: r["step"](r["state"], cams, target))
+            if i >= 2:
+                r["ms"].append(ms)
+    d, m = runs["direct"], runs["one-rank mesh"]
+    return {"bitwise": all(torch.equal(d["params"][k], m["params"][k])
+                           for k in d["params"]) and d["losses"] == m["losses"],
+            "losses": m["losses"], "direct_ms": statistics.median(d["ms"]),
+            "mesh_ms": statistics.median(m["ms"]), "counts": m["counts"],
+            "transport": mesh.transport,
+            "launches": [a + b for a, b in zip(d["launches"], m["launches"])]}
+
+
+def adc_mesh_worker(mesh=None) -> dict:
+    """13d on one rank: ``fit_scene_adaptive`` on the (1, 2) mesh at cell
+    adc's sizes, ``ADC_MESH_STEPS`` steps, rounds every ``ADC_MESH_EVERY``,
+    each step logged (one host read a step); then every rank's fitted scene
+    gathered and held bitwise to rank 0's."""
+    import numpy as np
+    import torch
+    from sage3d_tpu_torch.ops import binning, composite_cuda as cc, segreduce
+    from sage3d_tpu_torch.parallel import trainer as tr
+    from sage3d_tpu_torch.parallel.mesh import all_gather
+    from sage3d_tpu_torch.renderer.camera import make_camera, stack_cameras
+    from sage3d_tpu_torch.renderer.render import (autotune_poses,
+                                                  budget_kwargs, render)
+    from sage3d_tpu_torch.renderer.scene import (importance_subset,
+                                                 synthetic_room)
+    dev = mesh.device
+    target = synthetic_room(ADC_N, seed=7, device=dev)
+    cams_l = []
+    for i in range(ADC_VIEWS):
+        ang = 2 * np.pi * i / ADC_VIEWS + np.pi / 4
+        cams_l.append(make_camera(
+            [3.0 * np.cos(ang), 3.0 * np.sin(ang), 1.4],
+            [-np.cos(ang), -np.sin(ang), -0.1], width=ADC_W, height=ADC_H,
+            device=dev))
+    cams = stack_cameras(cams_l)
+    budgets = autotune_poses(target, cams, pair_margin=1.5)
+    bk = budget_kwargs(budgets)
+    with torch.no_grad():
+        targets = torch.stack([render(target, c, backend="cuda", **bk)["rgb"]
+                               for c in cams_l])
+    start = importance_subset(target, ADC_START)
+    cfg = tr.TrainerConfig(steps=ADC_MESH_STEPS, log_every=1, backend="cuda",
+                           group_lrs=True, mesh_shape=tuple(mesh.shape.values()),
+                           pair_capacity=budgets["pair_capacity"],
+                           tile_capacity=budgets["tile_capacity"],
+                           budgets=budgets)
+    adaptive = tr.AdaptiveConfig(densify_every=ADC_MESH_EVERY,
+                                 grad_threshold=ADC_GRAD)
+    kernels = (binning.emit_tile_pairs, cc.composite_fwd, cc.composite_bwd,
+               segreduce.segment_reduce_sorted)
+    torch.cuda.synchronize()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    fitted, history = tr.fit_scene_adaptive(start, cams, targets, cfg,
+                                            adaptive, capacity=ADC_N, seed=0,
+                                            verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+    bits = torch.cat([getattr(fitted, k).reshape(-1).view(torch.int32)
+                      for k in TRAINABLE] + [fitted.semantic_ids.reshape(-1)])
+    every = all_gather(bits[None], mesh, None, tag="report")
+    same = all(torch.equal(every[0], every[r]) for r in range(len(every)))
+    ranks = _rank_stats(mesh, launches + [
+        torch.cuda.max_memory_allocated(dev)])
+    return {"history": history, "wall_s": wall, "ranks_equal": same,
+            "ranks": ranks, "budgets": budgets}
+
+
+def sharded_path(ref_a, kend_a, budgets_a, budgets_train, card) -> dict:
+    """Phase 13, the sharded path (see the module docstring). Returns K1-K4's
+    launches on the ranks' main-path runs, summed over the ranks."""
+    import functools
+    import torch
+    from sage3d_tpu_torch.parallel.mesh import spawn_mesh
+    from sage3d_tpu_torch.parallel.multihost import GRAD_REL as SHARD_GRAD
+    from sage3d_tpu_torch.parallel.multihost import dryrun_multihost
+    names = ("emit", "composite_fwd", "composite_bwd", "segreduce")
+    total = dict.fromkeys(names, 0)
+    torch.cuda.empty_cache()       # the ranks share the card with this process
+
+    def attempt(label, fn):
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except RuntimeError as e:   # a rank failed: the phase fails
+            print(f"{label}: {e}", flush=True)
+            check(False, f"{label} ran")
+            return None
+        print(f"{label} {card}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    # 13a. band rendering of frame a --------------------------------------------
+    tiles_x = -(-ref_a["rgb"].shape[1] // 32)
+    tiles_y = -(-ref_a["rgb"].shape[0] // 32)
+    for shape in SHARD_MESHES:
+        r = attempt(f"13a {shape}", lambda: spawn_mesh(
+            functools.partial(band_worker, budgets_a), shape,
+            timeout_s=SHARD_TIMEOUT))
+        if r is None:
+            continue
+        err = max(float((r[k] - ref_a[k]).abs().max()) for k in ("rgb",
+                                                                  "alpha"))
+        sem = float((r["semantic"] == ref_a["semantic"]).float().mean())
+        kend = r["kend"].view(-1, tiles_x)[:tiles_y].reshape(-1)
+        kend_diff = int((kend != kend_a.to(kend.device)).sum())
+        ranks = r["ranks"]
+        for k, i in (("emit", 0), ("composite_fwd", 1)):
+            total[k] += sum(x[i] for x in ranks)
+        print(f"13a band render {shape} {card}: {r['band_h']} rows a band; "
+              f"vs the unsharded frame max_abs rgb/alpha {err:.3e}, semantic "
+              f"agreement {sem:.6f}, k_end differs on {kend_diff} of "
+              f"{tiles_x * tiles_y} tiles; overflow {r['overflow']}, per band "
+              f"{[x[2] for x in ranks]}; K1, K2 per rank "
+              f"{[x[:2] for x in ranks]}; frame {r['frame_ms']:.3f} ms "
+              f"(median of {SHARD_FRAMES}, events on rank 0); with collective "
+              f"times {r['timed_frame_ms']:.3f} ms: scene gather "
+              f"{r['gather_ms']:.3f}, band gather {r['band_gather_ms']:.3f}, "
+              f"render {r['timed_frame_ms'] - r['gather_ms'] - r['band_gather_ms']:.3f}"
+              f" ms; {r['bytes'] / 1e6:.1f} MB gathered a frame on rank 0, "
+              f"transport "
+              f"{r['transport']} (ranks share the card: host path, not "
+              f"NVLink); peak memory per rank "
+              f"{[round(x[3] / 2**30, 2) for x in ranks]} GiB", flush=True)
+        check(r["overflow"] == 0 and all(x[2] == 0 for x in ranks),
+              f"13a {shape}: every band's overflow is 0")
+        check(all(x[0] == 1 and x[1] == 1 for x in ranks),
+              f"13a {shape}: K1 and K2 launched once a band")
+        check(err <= K2_ATOL,
+              f"13a {shape}: rgb/alpha within {K2_ATOL} of the unsharded frame")
+
+    # 13b. the sharded train step at full width ---------------------------------
+    episodes = [{"episode_id": f"a+{dx}", "position": [
+        BENCH_CAM["position"][0] + dx] + BENCH_CAM["position"][1:],
+        "forward": BENCH_CAM["forward"], "focal_mm": BENCH_CAM["focal_mm"]}
+        for dx in (0.0, SHARD_CAM_OFFSET)]
+    for hosts, per_host in SHARD_STEP_MESHES:
+        rep = attempt(f"13b ({hosts}, {per_host})", lambda: dryrun_multihost(
+            hosts, per_host, n_gauss=FRAME_A[0], image=FRAME_A[1:],
+            steps=SHARD_STEPS, seed=0, episodes=episodes,
+            timeout_s=SHARD_TIMEOUT))
+        if rep is None:
+            continue
+        r0 = rep["ranks"][0]
+        for rank in rep["ranks"]:
+            for k in names:
+                total[k] += rank["launches"][k]
+        coll = r0["collectives_last_step"]
+        coll_ms = sum(v["ms"] for v in coll.values())
+        step_ms = statistics.median(r0["step_ms"][2:-1] or r0["step_ms"])
+        last_ms = r0["step_ms"][-1]
+        print(f"13b train step ({hosts}, {per_host}) {card}: losses "
+              f"{[f'{v:.6e}' for v in rep['losses']]} (every rank's bitwise "
+              f"equal); first-step gradients vs the direct step's, max_abs / "
+              f"group max {json.dumps(r0['grad_rel'])}; step {step_ms:.3f} ms "
+              f"(median of steps 3-{SHARD_STEPS - 1}, events on rank 0; "
+              f"direct step {r0['direct_step_median_ms']:.3f} ms on the same "
+              f"2 cameras); the last step, each collective synchronized, "
+              f"{last_ms:.3f} ms: collectives {coll_ms:.3f} ms "
+              f"({json.dumps(coll)}), Adam {r0['adam_ms']:.3f} ms (an Adam "
+              f"step timed alone), render fwd+bwd and glue "
+              f"{last_ms - coll_ms - r0['adam_ms']:.3f} ms; collectives a step "
+              f"{json.dumps(r0['written_collectives'])};"
+              f" transport {r0['transport']} (ranks share the card: host "
+              f"path, not NVLink); shard rows {r0['shard_rows']['means']} of "
+              f"{r0['total_rows']}; overflow first/last "
+              f"{[x['overflow_first_last'] for x in rep['ranks']]}; peak "
+              f"memory per rank "
+              f"{[round((x['peak_memory'] or 0) / 2**30, 2) for x in rep['ranks']]}"
+              f" GiB; K1-K4 per rank "
+              f"{[list(x['launches'].values()) for x in rep['ranks']]}",
+              flush=True)
+        losses = rep["losses"]
+        check(all(v <= SHARD_GRAD for v in r0["grad_rel"].values()),
+              f"13b ({hosts}, {per_host}): first-step gradients within "
+              f"{SHARD_GRAD} of each group's max of the direct step's")
+        check(losses[-1] < losses[0],
+              f"13b ({hosts}, {per_host}): the loss falls")
+        check(all(x["written_collectives"] == SHARD_COUNTS
+                  for x in rep["ranks"]),
+              f"13b ({hosts}, {per_host}): {SHARD_COUNTS} a step")
+        check(all(x["shard_rows"]["means"] * per_host == x["total_rows"]
+                  for x in rep["ranks"]),
+              f"13b ({hosts}, {per_host}): shard rows N / n_tile")
+        check(all(v == 0 for x in rep["ranks"]
+                  for v in x["overflow_first_last"]),
+              f"13b ({hosts}, {per_host}): overflow 0")
+
+    # 13c. the wrapper's cost: a one-rank NCCL group ------------------------
+    r = attempt("13c", lambda: spawn_mesh(
+        functools.partial(one_rank_worker, budgets_train), (1, 1),
+        backend="nccl", timeout_s=SHARD_TIMEOUT))
+    if r is not None:
+        for k, n in zip(names, r["launches"]):
+            total[k] += n
+        print(f"13c one-rank {r['transport']} mesh vs the direct step at "
+              f"frame a {card}: {ONE_RANK_STEPS} steps bitwise equal: "
+              f"{r['bitwise']} (losses {[f'{v:.6e}' for v in r['losses']]});"
+              f" step {r['mesh_ms']:.3f} ms vs {r['direct_ms']:.3f} ms direct"
+              f" (medians of {ONE_RANK_TIMED} steps each, in turns, events):"
+              f" the wrapper costs "
+              f"{r['mesh_ms'] - r['direct_ms']:.3f} ms; collectives over the "
+              f"{ONE_RANK_STEPS} steps {json.dumps(r['counts'])}", flush=True)
+        check(r["bitwise"] and r["transport"] == "nccl",
+              "13c: the one-rank NCCL step is bitwise the direct step")
+
+    # 13d. density control on a tile mesh ---------------------------------------
+    r = attempt("13d (1, 2)", lambda: spawn_mesh(adc_mesh_worker, (1, 2),
+                                                 timeout_s=SHARD_TIMEOUT))
+    if r is not None:
+        for rank in r["ranks"]:
+            for k, n in zip(names, rank[:4]):
+                total[k] += n
+        hist = r["history"]
+        t = [hist[0]["elapsed_s"]] + [
+            b["elapsed_s"] - a["elapsed_s"] for a, b in zip(hist, hist[1:])]
+        rounds = [h for h in hist if "n_alive" in h]
+        plain = [ms for h, ms in zip(hist, t) if "n_alive" not in h][2:]
+        step_ms = statistics.median(plain) * 1e3
+        round_ms = [(ms - statistics.median(plain)) * 1e3
+                    for h, ms in zip(hist, t) if "n_alive" in h]
+        mse = [h["mse"] for h in hist]
+        e = ADC_MESH_EVERY
+        segments = [(mse[a], mse[a + e - 1]) for a in range(0, len(mse), e)]
+        print(f"13d fit_scene_adaptive (1, 2) {card}: {r['wall_s']:.2f} s "
+              f"wall, {ADC_MESH_STEPS} steps of {ADC_VIEWS} views at "
+              f"{ADC_W}x{ADC_H}; step {step_ms:.3f} ms (median, host clock, "
+              f"one loss read a step); a round {[round(x, 3) for x in round_ms]}"
+              f" ms above a step; rounds "
+              f"{[{k: h[k] for k in ('step', 'n_alive', 'n_new', 'n_pruned')} for h in rounds]};"
+              f" loss (first, last) between rounds {segments}; ranks' fitted "
+              f"scenes bitwise equal: {r['ranks_equal']}; K1-K4 and peak "
+              f"memory per rank {r['ranks']}", flush=True)
+        check(r["ranks_equal"] and len(rounds) == ADC_MESH_STEPS // e,
+              "13d: the ranks' scenes are bitwise equal after each round "
+              "(the trainer checks each round; the fitted scenes here)")
+        check(all(b < a for a, b in segments),
+              "13d: the loss falls between rounds")
+    return total
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -2804,13 +3243,21 @@ def main() -> int:
     print(f"peak device memory {card}: {script_peak / 2**30:.2f} GiB for the "
           f"script, {peak_b / 2**30:.2f} GiB at frame b's render", flush=True)
 
+    # 13. the sharded path --------------------------------------------------------------
+    t0 = time.perf_counter()
+    launches_mesh = sharded_path(outs["a_1080p_1M"], kend_k,
+                                 budgets["a_1080p_1M"], budgets_train, card)
+    print(f"sharded phase {card}: {time.perf_counter() - t0:.1f} s, launches "
+          f"summed over the ranks {json.dumps(launches_mesh)}", flush=True)
+
     kernels = [
         {"name": "K1 emit_tile_pairs", "route": "cuda",
          "source": "sage3d_tpu_torch/csrc/emit.cu",
          "replaces": "sage3d_tpu/ops/binning.py:153",
          "launches": launches["emit"] + launches_train["emit"]
          + launches_bench["emit"] + launches_nav[0] + launches_data[0]
-         + launches_serve[0] + launches_adc["emit"],
+         + launches_serve[0] + launches_adc["emit"]
+         + launches_mesh["emit"],
          "max_abs_err": 0.0 if k1_equal else None,
          "ms": k1_ms, "back_to_back_ms": dev_ms["K1"],
          "host_ms": host_ms["K1"],
@@ -2822,7 +3269,8 @@ def main() -> int:
          "launches": launches["composite_fwd"]
          + launches_train["composite_fwd"] + launches_bench["composite_fwd"]
          + launches_nav[1] + launches_data[1] + launches_serve[1]
-         + launches_adc["composite_fwd"],
+         + launches_adc["composite_fwd"]
+         + launches_mesh["composite_fwd"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "back_to_back_ms": dev_ms["K2"],
          "host_ms": host_ms["K2"],
@@ -2832,7 +3280,8 @@ def main() -> int:
          "source": "sage3d_tpu_torch/csrc/composite_bwd.cu",
          "replaces": "sage3d_tpu/ops/composite_pallas.py:249",
          "launches": launches_train["composite_bwd"]
-         + launches_bench["composite_bwd"] + launches_adc["composite_bwd"],
+         + launches_bench["composite_bwd"] + launches_adc["composite_bwd"]
+         + launches_mesh["composite_bwd"],
          "max_abs_err": k3_err,
          "ms": k3_ms, "back_to_back_ms": dev_ms["K3"],
          "host_ms": host_ms["K3"],
@@ -2842,7 +3291,8 @@ def main() -> int:
          "source": "sage3d_tpu_torch/csrc/segreduce.cu",
          "replaces": "sage3d_tpu/ops/segreduce.py:55",
          "launches": launches_train["segreduce"] + launches_bench["segreduce"]
-         + launches_adc["segreduce"],
+         + launches_adc["segreduce"]
+         + launches_mesh["segreduce"],
          "max_abs_err": k4_err,
          "ms": k4_ms, "back_to_back_ms": dev_ms["K4"],
          "host_ms": host_ms["K4"],

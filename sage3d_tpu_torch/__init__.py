@@ -6,8 +6,11 @@ reference it is tested against. It imports neither JAX nor ``sage3d_tpu``.
 It holds the differentiable render path: scene and camera, projection,
 binning (kernel K1, ``csrc/emit.cu``), the tile compositor (kernel K2,
 ``csrc/composite_fwd.cu``) and its analytic backward (kernels K3,
-``csrc/composite_bwd.cu``, and K4, ``csrc/segreduce.cu``); single-device
-scene training (``parallel/``: train step, checkpoints, ``fit_scene``); the
+``csrc/composite_bwd.cu``, and K4, ``csrc/segreduce.cu``); scene training
+(``parallel/``: train step, checkpoints, ``fit_scene``), on one device or
+sharded over a (data x tile) mesh of ranks on ``torch.distributed``
+(``parallel/mesh.py``, ``sharded_render.py``, ``multihost.py``,
+``audit.py``); the
 closed-loop navigation path (``ops/collision.py`` capsule queries,
 ``physics/`` occupancy grid and agent, ``env/`` the VLN env and rollouts,
 ``bench/`` the SAGE-Bench runner with its tasks and measures, ``serve/`` the

@@ -26,9 +26,9 @@ and flags. One CLI replaces the reference's per-script argparse drivers:
 Beyond the JAX CLI's flags, every command that touches tensors takes
 ``--device`` (default ``cuda``; ``cpu`` runs it on the CPU), ``serve-torch``
 replaces ``serve-jax``, and ``run-benchmark`` and ``gen-images`` print the
-frames' ``total_overflow`` so that dropped pairs are never silent. A
-``--mesh`` of more than one device raises the train step's
-``NotImplementedError`` (the sharded step is not ported). ``run-benchmark
+frames' ``total_overflow`` so that dropped pairs are never silent.
+``train-scene --mesh RxC`` of more than one rank starts one process per
+rank on ``--device`` (``parallel/mesh.py``'s ``spawn_mesh``). ``run-benchmark
 --budgets`` takes the env's binning budgets from a JSON file (an
 ``autotune_poses`` dict): without it the frames use ``render``'s defaults,
 as in the JAX CLI, and those drop pairs at 640x480 even in a 20k-Gaussian

@@ -1,21 +1,29 @@
-"""Scene optimization: the single-device training step.
+"""Scene optimization: the train step, on one device or over a mesh.
 
-PyTorch counterpart of the single-chip path of ``sage3d_tpu/parallel/train.py``.
-A step renders every camera of the batch, one after another, takes the
-masked squared error against its target, and runs Adam on the five trainable
-groups. The loss of a batch is the squared error summed over cameras, rows,
-columns and channels, divided by ``B * H * W * 3``.
+PyTorch counterpart of ``sage3d_tpu/parallel/train.py``. A step renders
+every camera of the batch, one after another, takes the masked squared error
+against its target, and runs Adam on the five trainable groups. The loss of
+a batch is the squared error summed over cameras, rows, columns and
+channels, divided by ``B * H * W * 3``.
 
 The state is mutable, as PyTorch's is: ``TrainState.params`` are leaf tensors
 that ``opt_state`` (a ``torch.optim.Adam`` over them) updates in place, and a
-step returns the same state with ``step`` advanced. The sharded step over a
-(data x tile) mesh is not ported: a mesh of more than one device raises.
+step returns the same state with ``step`` advanced.
+
+Over a (data x tile) ``Mesh`` (``parallel/mesh.py``) the step is the JAX
+package's FSDP-style layout: the parameters and the Adam moments are split
+into row shards over "tile" (each rank's Adam holds only its shard, as ZeRO
+does); a step all-gathers them once, in ``grad_buckets`` row chunks, renders
+this rank's band of rows for each of its cameras (its rows of the batch over
+"data"), reduce-scatters the gradients once in the same chunks over "tile"
+and all-reduces them over "data". Without a mesh (or on a one-rank mesh) the
+step renders the whole frame on one device with no collective.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -23,6 +31,8 @@ from ..ops.binning import TILE_H
 from ..renderer.camera import Camera, unstack_cameras
 from ..renderer.render import render
 from ..renderer.scene import GaussianScene
+from .mesh import (Mesh, all_reduce, gather_into, make_mesh,
+                   reduce_scatter_into, shard_rows)
 
 TRAINABLE = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
@@ -42,10 +52,11 @@ class Optimizer(NamedTuple):
     """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8), as a recipe:
     ``init(params)`` builds one ``torch.optim.Adam`` over the parameter
     tensors with one param group per key, at ``lr`` or, where ``group_lrs``
-    names the key, at that rate."""
+    names the key, at that rate; ``eps`` is Adam's (optax's ``eps``)."""
 
     lr: float = 1e-3
     group_lrs: Optional[Dict[str, float]] = None
+    eps: float = 1e-8
 
     def lr_of(self, key: str) -> float:
         return self.group_lrs[key] if self.group_lrs is not None else self.lr
@@ -53,7 +64,7 @@ class Optimizer(NamedTuple):
     def init(self, params: Dict[str, torch.Tensor]) -> torch.optim.Adam:
         groups = [{"params": [p], "lr": self.lr_of(k), "name": k}
                   for k, p in params.items()]
-        return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=self.eps)
 
 
 def make_optimizer(lr: float = 1e-3) -> Optimizer:
@@ -79,12 +90,16 @@ def with_params(scene: GaussianScene,
 
 
 def init_train_state(scene: GaussianScene,
-                     optimizer: Optional[Optimizer] = None) -> TrainState:
+                     optimizer: Optional[Optimizer] = None,
+                     mesh: Optional[Mesh] = None,
+                     tile_axis: str = "tile") -> TrainState:
     """Step 0: the scene's trainable tensors copied into leaves that require
-    grad, and the optimizer over them."""
+    grad, and the optimizer over them. On a mesh, each leaf is this rank's
+    row shard over ``tile_axis`` (N / n_tile rows of the padded scene), and
+    the optimizer holds only the shards."""
     optimizer = optimizer if optimizer is not None else make_optimizer()
-    params = {k: v.detach().clone().requires_grad_(True)
-              for k, v in scene_params(scene).items()}
+    params = {k: shard_rows(v, mesh, tile_axis).detach().clone()
+              .requires_grad_(True) for k, v in scene_params(scene).items()}
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
 
 
@@ -113,59 +128,160 @@ def pad_scene_to(scene: GaussianScene, multiple: int) -> GaussianScene:
     )
 
 
-def _mesh_devices(mesh: Optional[Sequence[int]]) -> int:
-    """The number of devices of a mesh given as None (one) or as a shape such
-    as ``(n_data, n_tile)``."""
-    return 1 if mesh is None else math.prod(int(s) for s in mesh)
+def _buckets(rows: int, n_buckets: int) -> list:
+    """Row ranges of the gather buckets: ``n_buckets`` equal chunks, or one
+    where the rows do not divide (as in the JAX package)."""
+    if n_buckets <= 1 or rows % n_buckets:
+        return [(0, rows)]
+    c = rows // n_buckets
+    return [(i * c, (i + 1) * c) for i in range(n_buckets)]
+
+
+class _AllGatherBucketed(torch.autograd.Function):
+    """Forward: one gather per bucket of rows; the full tensor is rank-major
+    (rank r's shard at rows r*s .. (r+1)*s), bitwise one monolithic gather.
+    Backward: one reduce-scatter per bucket, in the same chunks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, n_buckets, tag):
+        n, s = mesh.axis_size(axis), x.shape[0]
+        ctx.mesh, ctx.axis, ctx.tag = mesh, axis, tag
+        ctx.buckets = _buckets(s, n_buckets)
+        out = x.new_empty((n, s) + tuple(x.shape[1:]))
+        for a, b in ctx.buckets:
+            gather_into([out[r, a:b] for r in range(n)], x[a:b].contiguous(),
+                        mesh, axis, tag)
+        return out.view((n * s,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = ctx.mesh.axis_size(ctx.axis)
+        grad = grad.contiguous().view((n, -1) + tuple(grad.shape[1:]))
+        gx = grad.new_empty(grad.shape[1:])
+        for a, b in ctx.buckets:
+            reduce_scatter_into(gx[a:b], [grad[r, a:b] for r in range(n)],
+                                ctx.mesh, ctx.axis, ctx.tag)
+        return gx, None, None, None, None
+
+
+def all_gather_bucketed(x: torch.Tensor, mesh: Mesh, axis: str,
+                        n_buckets: int, tag: str = "params") -> torch.Tensor:
+    """All-gather the row shards ``x`` over ``axis`` in ``n_buckets`` row
+    chunks: ``n_buckets`` collectives whose gradient is ``n_buckets``
+    independent reduce-scatters, the bucketed gradient reduction of the JAX
+    package. One gather where the shard's rows do not divide by
+    ``n_buckets``. Differentiable in ``x``."""
+    return _AllGatherBucketed.apply(x, mesh, axis, n_buckets, tag)
+
+
+def _as_mesh(mesh, force_shard_map: bool, device) -> Optional[Mesh]:
+    """The mesh the step runs on, or None for the direct path: no mesh, a
+    one-rank shape such as ``(1, 1)``, or a one-rank ``Mesh`` unless
+    ``force_shard_map``. A shape of more than one rank raises: its ranks
+    are processes, each passing its ``Mesh``."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        shape = tuple(int(s) for s in mesh)
+        if math.prod(shape) > 1:
+            raise ValueError(
+                f"make_train_step: a mesh of shape {shape} runs one process "
+                "per rank: run it under spawn_mesh (parallel/mesh.py) and "
+                "pass each rank's Mesh, or pass mesh=None for one device")
+        mesh = make_mesh(shape, device=device) if force_shard_map else None
+    if mesh is not None and mesh.size == 1 and not force_shard_map:
+        return None
+    return mesh
 
 
 def make_train_step(template: GaussianScene, camera: Camera, mesh=None,
                     optimizer: Optional[Optimizer] = None,
-                    backend: str = "torch", **render_kw):
+                    data_axis: str = "data", tile_axis: str = "tile",
+                    backend: str = "torch", grad_buckets: int = 4,
+                    force_shard_map: bool = False, **render_kw):
     """Build the train step.
 
-    ``template`` supplies the non-trainable fields (semantic ids); ``camera``
-    the intrinsics and resolution every camera of a batch shares. ``mesh``:
-    None or a shape such as ``(1, 1)``; more than one device raises
-    ``NotImplementedError`` (the sharded step, ROADMAP.md Queue 1 item 13).
+    ``template`` supplies the non-trainable fields (semantic ids) and the
+    shapes, padded so that N divides the mesh's tile axis (``pad_scene_to``);
+    ``camera`` the intrinsics and resolution every camera of a batch shares.
+    ``mesh``: None or a one-rank shape such as ``(1, 1)`` for the direct
+    path; this rank's ``Mesh`` for the sharded step. A shape of more than
+    one rank raises ``ValueError``: run the ranks under ``spawn_mesh``.
+    ``force_shard_map`` takes the collective path on a one-rank mesh (its
+    cost without communication).
+
+    On a mesh, the state is ``init_train_state(template, optimizer, mesh)``;
+    the cameras and targets a rank passes are its own rows of the batch over
+    ``data_axis`` (``global_batch_from_local``, or ``shard_rows`` of a global
+    batch). A step issues ``grad_buckets`` all-gathers and reduce-scatters
+    per trainable group over ``tile_axis``, one all-reduce of each group's
+    gradient over ``data_axis``, and one all-reduce of the loss over every
+    rank, whatever the batch; every rank returns the same loss.
 
     Returns (train_step, optimizer):
     ``train_step(state, cam_batch, targets (B, H, W, 3)) -> (state, loss)``;
-    ``train_step.adc(...) -> (state, loss, gnorm)`` also returns the
-    per-Gaussian norms of the ``means`` gradient (N,), the densification
-    score. The loss is a detached scalar tensor; nothing waits for the device.
+    ``train_step.adc(...) -> (state, loss, gnorm)`` also returns the norms of
+    the ``means`` gradient rows this rank holds (N,) or (N / n_tile,), the
+    densification score. The loss is a detached scalar tensor.
     """
-    n_dev = _mesh_devices(mesh)
-    if n_dev != 1:
-        raise NotImplementedError(
-            f"make_train_step: a mesh of {n_dev} devices needs the sharded "
-            "train step, which is not ported yet (ROADMAP.md Queue 1, item "
-            "13); pass mesh=None to train on one device")
+    mesh = _as_mesh(mesh, force_shard_map, template.device)
     if optimizer is None:
         optimizer = make_optimizer()
     height, width = camera.height, camera.width
-    band_h = -(-height // TILE_H) * TILE_H   # one band: the tile-padded frame
+    n_data = n_tile = 1
+    band = 0
+    if mesh is not None:
+        n_data, n_tile = mesh.shape[data_axis], mesh.shape[tile_axis]
+        band = mesh.axis_index(tile_axis)
+    tiles_h = -(-height // TILE_H)              # tile rows of the frame
+    band_h = -(-tiles_h // n_tile) * TILE_H     # image rows per band
+    y0 = band * band_h
+    # rows past the true image height are band-grid padding: masked
+    mask = (torch.arange(y0, y0 + band_h, device=template.device)
+            < height).to(torch.float32)[:, None, None]
 
-    def loss_and_grads(state: TrainState, cam_batch: Camera,
-                       targets: torch.Tensor) -> torch.Tensor:
-        """Backpropagate the batch loss camera by camera, so one camera's
-        graph is freed before the next is rendered. Returns the loss."""
-        params = state.params
-        scene = with_params(template, params)
-        n_px = targets.shape[0] * height * width * 3
-        if targets.shape[1] < band_h:     # pad rows to the band grid
+    def band_error(scene, cam_batch, targets, n_px) -> torch.Tensor:
+        """Backpropagate each camera's masked error over this band / n_px,
+        camera by camera, so one camera's graph is freed before the next is
+        rendered. Returns the summed error, detached."""
+        if targets.shape[1] < n_tile * band_h:    # pad rows to the band grid
             targets = torch.nn.functional.pad(
-                targets, (0, 0, 0, 0, 0, band_h - targets.shape[1]))
-        mask = (torch.arange(band_h, device=targets.device) < height).to(
-            torch.float32)[:, None, None]
+                targets, (0, 0, 0, 0, 0, n_tile * band_h - targets.shape[1]))
         total = torch.zeros((), dtype=torch.float32, device=targets.device)
         for cam, target in zip(unstack_cameras(cam_batch), targets):
+            if y0:
+                cam = cam._replace(cy=cam.cy - y0)
             out = render(scene, cam._replace(height=band_h), backend=backend,
                          clamp_dims=(width, height), **render_kw)
-            err = torch.sum(((out["rgb"] - target[:band_h]) ** 2) * mask)
-            (err / n_px).backward()
+            err = torch.sum(((out["rgb"] - target[y0:y0 + band_h]) ** 2)
+                            * mask)
+            if err.requires_grad:   # else no Gaussian reaches this band
+                (err / n_px).backward()
             total = total + err.detach()
-        return total / n_px
+        return total
+
+    def direct_loss(state: TrainState, cam_batch, targets) -> torch.Tensor:
+        n_px = targets.shape[0] * height * width * 3
+        scene = with_params(template, state.params)
+        return band_error(scene, cam_batch, targets, n_px) / n_px
+
+    def sharded_loss(state: TrainState, cam_batch, targets) -> torch.Tensor:
+        """Gather the shards once, backpropagate every camera into the
+        gathered leaves, then reduce-scatter their gradients once over the
+        tile axis (into the shards' ``.grad``) and all-reduce them over the
+        data axis."""
+        n_px = targets.shape[0] * n_data * height * width * 3
+        full = {k: all_gather_bucketed(state.params[k], mesh, tile_axis,
+                                       grad_buckets) for k in TRAINABLE}
+        leaves = {k: v.detach().requires_grad_(True) for k, v in full.items()}
+        total = band_error(with_params(template, leaves), cam_batch, targets,
+                           n_px)
+        for k in TRAINABLE:
+            g = leaves[k].grad
+            full[k].backward(g if g is not None
+                             else torch.zeros_like(leaves[k]))
+            all_reduce(state.params[k].grad, mesh, data_axis, tag="grads")
+        return all_reduce(total, mesh, None, tag="loss") / n_px
+
+    loss_and_grads = direct_loss if mesh is None else sharded_loss
 
     def _step(state, cam_batch, targets, adc: bool):
         opt = state.opt_state
@@ -185,7 +301,7 @@ def make_train_step(template: GaussianScene, camera: Camera, mesh=None,
     def train_step_adc(state: TrainState, cam_batch: Camera,
                        targets: torch.Tensor):
         """Like train_step, also returning the per-Gaussian norms of the
-        positional gradient (N,)."""
+        positional gradient rows this rank holds."""
         return _step(state, cam_batch, targets, adc=True)
 
     train_step.adc = train_step_adc

@@ -4,8 +4,17 @@ PyTorch counterpart of ``fit_scene``, ``fit_scene_adaptive``, ``with_capacity``,
 ``psnr`` and ``make_orbit_targets`` in ``sage3d_tpu/parallel/trainer.py``:
 Adam over ``parallel/train.py``'s step, with periodic checkpoints and resume,
 reporting PSNR, and the same loop with classic 3DGS adaptive density control
-(``parallel/densify.py``) inside a fixed slot capacity. One device: a mesh of
-more than one device raises the train step's ``NotImplementedError``.
+(``parallel/densify.py``) inside a fixed slot capacity.
+
+``TrainerConfig.mesh_shape`` of more than one rank trains over a (data x
+tile) mesh (``parallel/mesh.py``): inside a process group the loop runs as
+the calling rank, on its rows of the global batch (``shard_rows``) with the
+sharded train step; outside one it runs under ``spawn_mesh`` and returns
+rank 0's fitted scene and history. A density-control round gathers the
+parameters, their Adam moments and the gradient score, runs
+``densify_prune`` on the full rows identically on every rank (the same CPU
+generator), checks that every rank's scene is bitwise rank 0's, and writes
+each rank's rows back in place into the shards and moments its Adam holds.
 
 ``TrainerConfig`` carries ``pair_capacity`` and ``tile_capacity`` of the
 render budgets, as in the JAX package, and optionally a whole ``budgets``
@@ -19,20 +28,23 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..renderer.camera import Camera, make_camera, stack_cameras
 from ..renderer.render import budget_kwargs, render
 from ..renderer.scene import GaussianScene
 from .checkpoint import restore_train_state, save_train_state
-from .densify import (DEAD_LOGIT, PARK_POS, DensifyConfig, accumulate,
-                      densify_prune, init_densify_state, reset_opacity,
-                      zero_opacity_moments)
-from .train import (make_group_optimizer, make_optimizer, make_train_step,
-                    init_train_state, pad_scene_to, with_params)
+from .densify import (DEAD_LOGIT, PARK_POS, DensifyConfig, DensifyState,
+                      accumulate, densify_prune, init_densify_state,
+                      reset_opacity, zero_opacity_moments)
+from .mesh import Mesh, all_gather, broadcast, make_mesh, shard_rows, spawn_mesh
+from .train import (TRAINABLE, make_group_optimizer, make_optimizer,
+                    make_train_step, init_train_state, pad_scene_to,
+                    with_params)
 
 
 @dataclass
@@ -68,20 +80,55 @@ def psnr(mse: float) -> float:
     return 10.0 * math.log10(1.0 / max(mse, 1e-12))
 
 
+def _spawned(mesh_shape) -> bool:
+    """A mesh of more than one rank, outside a process group: the fit runs
+    under ``spawn_mesh``."""
+    return math.prod(mesh_shape) > 1 and not dist.is_initialized()
+
+
+def _mesh_of(mesh_shape, device) -> Optional[Mesh]:
+    """The mesh of a fit inside a process group; None for one rank."""
+    return make_mesh(mesh_shape, device=device) \
+        if math.prod(mesh_shape) > 1 else None
+
+
+def _full_params(params, mesh: Optional[Mesh]) -> dict:
+    """The trainable tensors, detached; gathered over "tile" on a mesh."""
+    if mesh is None:
+        return {k: v.detach() for k, v in params.items()}
+    return {k: all_gather(v.detach(), mesh, "tile", tag="fitted")
+            for k, v in params.items()}
+
+
 def fit_scene(scene: GaussianScene, cameras: Camera, targets: torch.Tensor,
               config: TrainerConfig = TrainerConfig(), verbose: bool = True):
     """Optimize ``scene`` so its renders match ``targets`` (B, H, W, 3).
 
     Returns (fitted_scene, history). Resumes from ``config.checkpoint_dir``
-    if it holds a checkpoint."""
+    if it holds a checkpoint (of any mesh shape). ``cameras`` and
+    ``targets`` are the global batch; B must divide over the mesh's data
+    axis. Outside a process group, a ``mesh_shape`` of more than one rank
+    runs under ``spawn_mesh`` on ``scene``'s device."""
+    if _spawned(config.mesh_shape):
+        return spawn_mesh(_fit_scene, config.mesh_shape, scene, cameras,
+                          targets, config, verbose, device=scene.device)
+    return _fit_scene(scene, cameras, targets, config, verbose,
+                      mesh=_mesh_of(config.mesh_shape, scene.device))
+
+
+def _fit_scene(scene, cameras, targets, config, verbose, mesh=None):
     template = pad_scene_to(scene, max(config.mesh_shape[1], 1))
     opt = config.make_opt()
+    cams = shard_rows(cameras, mesh, "data")
+    targets = shard_rows(targets, mesh, "data")
     train_step, _ = make_train_step(
-        template, cameras, mesh=config.mesh_shape, optimizer=opt,
-        backend=config.backend, **config.render_kw())
-    state = init_train_state(template, opt)
+        template, cams, mesh=mesh, optimizer=opt, backend=config.backend,
+        **config.render_kw())
+    state = init_train_state(template, opt, mesh)
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     if config.checkpoint_dir:
-        restored = restore_train_state(config.checkpoint_dir, state)
+        restored = restore_train_state(config.checkpoint_dir, state,
+                                       mesh=mesh)
         if restored is not None:
             state = restored
             if verbose:
@@ -90,7 +137,7 @@ def fit_scene(scene: GaussianScene, cameras: Camera, targets: torch.Tensor,
     history = []
     t0 = time.time()
     for step in range(state.step, config.steps):
-        state, loss = train_step(state, cameras, targets)
+        state, loss = train_step(state, cams, targets)
         if (step + 1) % config.log_every == 0 or step + 1 == config.steps:
             mse = float(loss)
             history.append({"step": step + 1, "mse": mse, "psnr": psnr(mse),
@@ -100,12 +147,11 @@ def fit_scene(scene: GaussianScene, cameras: Camera, targets: torch.Tensor,
                 print(f"[trainer] step {h['step']} mse={h['mse']:.6f} "
                       f"psnr={h['psnr']:.2f}dB t={h['elapsed_s']:.1f}s")
         if config.checkpoint_dir and (step + 1) % config.checkpoint_every == 0:
-            save_train_state(config.checkpoint_dir, state)
+            save_train_state(config.checkpoint_dir, state, mesh=mesh)
     if config.checkpoint_dir:
-        save_train_state(config.checkpoint_dir, state)
+        save_train_state(config.checkpoint_dir, state, mesh=mesh)
 
-    fitted = with_params(template, {k: v.detach()
-                                    for k, v in state.params.items()})
+    fitted = with_params(template, _full_params(state.params, mesh))
     return fitted, history
 
 
@@ -159,16 +205,29 @@ def fit_scene_adaptive(scene: GaussianScene, cameras: Camera,
     place into the tensors the optimizer holds. ``seed`` seeds the CPU
     generator of the split noise. Returns (fitted_scene, history); a
     density-control round's entry also carries n_alive, n_new, n_pruned,
-    n_split and n_clone."""
+    n_split and n_clone. Meshes as in ``fit_scene``."""
+    if _spawned(config.mesh_shape):
+        return spawn_mesh(_fit_scene_adaptive, config.mesh_shape, scene,
+                          cameras, targets, config, adaptive, capacity, seed,
+                          verbose, device=scene.device)
+    return _fit_scene_adaptive(scene, cameras, targets, config, adaptive,
+                               capacity, seed, verbose,
+                               mesh=_mesh_of(config.mesh_shape, scene.device))
+
+
+def _fit_scene_adaptive(scene, cameras, targets, config, adaptive, capacity,
+                        seed, verbose, mesh=None):
     cap = capacity or 2 * scene.num_gaussians
     template = pad_scene_to(with_capacity(scene, cap),
                             max(config.mesh_shape[1], 1))
     opt = config.make_opt()
+    cams = shard_rows(cameras, mesh, "data")
+    targets = shard_rows(targets, mesh, "data")
     train_step, _ = make_train_step(
-        template, cameras, mesh=config.mesh_shape, optimizer=opt,
-        backend=config.backend, **config.render_kw())
-    state = init_train_state(template, opt)
-    dstate = init_densify_state(template.num_gaussians,
+        template, cams, mesh=mesh, optimizer=opt, backend=config.backend,
+        **config.render_kw())
+    state = init_train_state(template, opt, mesh)
+    dstate = init_densify_state(state.params["means"].shape[0],
                                 device=template.means.device)
     dcfg = DensifyConfig(grad_threshold=adaptive.grad_threshold,
                          split_scale=adaptive.split_scale,
@@ -176,19 +235,24 @@ def fit_scene_adaptive(scene: GaussianScene, cameras: Camera,
                          max_new_fraction=adaptive.max_new_fraction)
     gen = torch.Generator().manual_seed(seed)
     semantic_ids = template.semantic_ids
+    verbose = verbose and (mesh is None or mesh.rank == 0)
 
     history = []
     t0 = time.time()
     for step in range(config.steps):
-        state, loss, gnorm = train_step.adc(state, cameras, targets)
+        state, loss, gnorm = train_step.adc(state, cams, targets)
         dstate = accumulate(dstate, gnorm[:, None])
         info = None
         if adaptive.densify_every \
                 and (step + 1) % adaptive.densify_every == 0 \
                 and step + 1 <= adaptive.densify_until:
-            _, dstate, _, semantic_ids, info = densify_prune(
-                state.params, dstate, gen, dcfg, opt_state=state.opt_state,
-                semantic_ids=semantic_ids)
+            if mesh is None:
+                _, dstate, _, semantic_ids, info = densify_prune(
+                    state.params, dstate, gen, dcfg,
+                    opt_state=state.opt_state, semantic_ids=semantic_ids)
+            else:
+                dstate, semantic_ids, info = _sharded_round(
+                    state, dstate, gen, dcfg, semantic_ids, mesh)
         if adaptive.opacity_reset_every and \
                 (step + 1) % adaptive.opacity_reset_every == 0:
             reset_opacity(state.params)
@@ -208,9 +272,53 @@ def fit_scene_adaptive(scene: GaussianScene, cameras: Camera,
                 print(f"[trainer/adc] step {h['step']} "
                       f"mse={h['mse']:.6f} psnr={h['psnr']:.2f}dB{extra}")
 
-    fitted = with_params(template, {k: v.detach()
-                                    for k, v in state.params.items()})
+    fitted = with_params(template, _full_params(state.params, mesh))
     return fitted._replace(semantic_ids=semantic_ids), history
+
+
+class _FullRows(NamedTuple):
+    """What ``densify_prune`` reads of an optimizer (``param_groups`` and
+    ``state``), over full-row copies of the parameters and their moments."""
+    param_groups: list
+    state: dict
+
+
+@torch.no_grad()
+def _sharded_round(state, dstate: DensifyState, gen, dcfg: DensifyConfig,
+                   semantic_ids, mesh: Mesh):
+    """One density-control round on a mesh: gather the parameters, their
+    Adam moments and the gradient score over "tile", run ``densify_prune``
+    on the full rows (the same on every rank), check that every rank's scene
+    is bitwise rank 0's, and write this rank's rows back in place into its
+    shards and the moments its Adam holds. Returns (state of the score,
+    semantic_ids, info)."""
+    opt = state.opt_state
+    full = {k: all_gather(state.params[k].detach(), mesh, "tile",
+                          tag="round") for k in TRAINABLE}
+    moments = {k: {name: all_gather(v, mesh, "tile", tag="round")
+                   for name, v in opt.state.get(state.params[k], {}).items()
+                   if torch.is_tensor(v) and v.dim() >= 1}
+               for k in TRAINABLE}
+    accum = all_gather(dstate.grad_accum, mesh, "tile", tag="round")
+    view = _FullRows([{"params": [full[k]]} for k in TRAINABLE],
+                     {full[k]: moments[k] for k in TRAINABLE})
+    _, _, _, semantic_ids, info = densify_prune(
+        full, DensifyState(accum, dstate.n_steps), gen, dcfg, opt_state=view,
+        semantic_ids=semantic_ids)
+    bits = torch.cat([full[k].reshape(-1).view(torch.int32)
+                      for k in TRAINABLE] + [semantic_ids.reshape(-1)])
+    if not torch.equal(broadcast(bits.clone(), mesh, 0, tag="replicas"),
+                       bits):
+        raise RuntimeError(f"rank {mesh.rank}: the scene after density "
+                           "control differs from rank 0's")
+    for k in TRAINABLE:
+        p = state.params[k]
+        p.copy_(shard_rows(full[k], mesh, "tile"))
+        for name, v in moments[k].items():
+            opt.state[p][name].copy_(shard_rows(v, mesh, "tile"))
+    return (init_densify_state(dstate.grad_accum.shape[0],
+                               device=dstate.grad_accum.device),
+            semantic_ids, info)
 
 
 @torch.no_grad()

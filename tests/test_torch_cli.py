@@ -149,11 +149,25 @@ def test_cli_train_scene_adaptive(tmp_path, capsys):
 
 
 def test_cli_train_scene_refuses_a_mesh(tmp_path):
+    """``--mesh 1x2`` trains on two gloo ranks spawned on the CPU and writes
+    the fitted PLY; its checkpoint (the single-device format, written by
+    rank 0) resumes on one device."""
+    import torch
+    from sage3d_tpu_torch.parallel.checkpoint import latest_step
+    from sage3d_tpu_torch.renderer.scene import load_ply
     ply = _scene_ply(tmp_path, 64, 2)
-    with pytest.raises(NotImplementedError, match="sharded train step"):
-        cli.main(["train-scene", "--scene-ply", str(ply), "--steps", "2",
-                  "--views", "1", "--size", "16", "--mesh", "1x2",
-                  "--device", "cpu"])
+    ckpt = tmp_path / "ckpt"
+    rc = cli.main(["train-scene", "--scene-ply", str(ply), "--steps", "2",
+                   "--views", "2", "--size", "32", "--mesh", "1x2",
+                   "--checkpoint-dir", str(ckpt), "--device", "cpu"])
+    assert rc == 0 and latest_step(ckpt) == 2
+    fitted = load_ply(tmp_path / "scene_fitted.ply", device="cpu")
+    assert fitted.num_gaussians == 64
+    assert bool(torch.isfinite(fitted.means).all())
+    rc = cli.main(["train-scene", "--scene-ply", str(ply), "--steps", "3",
+                   "--views", "2", "--size", "32", "--mesh", "1x1",
+                   "--checkpoint-dir", str(ckpt), "--device", "cpu"])
+    assert rc == 0 and latest_step(ckpt) == 3
 
 
 def test_cli_validate_ply(tmp_path, capsys):

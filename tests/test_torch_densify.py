@@ -383,19 +383,33 @@ def test_fit_scene_adaptive_opacity_reset_group_lrs():
 
 
 def test_fit_scene_adaptive_refuses_a_tile_mesh():
-    """The sharded step is not ported: a mesh of two devices raises the
-    train step's error before any step."""
-    from sage3d_tpu_torch.parallel.trainer import (TrainerConfig,
+    """The counterpart of the JAX package's tile-mesh test: density control
+    on a (1, 2) mesh of gloo ranks spawned on the CPU. The live count grows
+    into the capacity, the run still improves, and every round checks that
+    both ranks hold bitwise the same scene (the trainer raises otherwise)."""
+    from sage3d_tpu_torch.parallel.trainer import (AdaptiveConfig,
+                                                   TrainerConfig,
                                                    fit_scene_adaptive,
                                                    make_orbit_targets)
     from sage3d_tpu_torch.renderer.scene import synthetic_room
 
-    scene = synthetic_room(32, seed=1, device="cpu")
-    cams, targets = make_orbit_targets(scene, n_views=1, width=16, height=16)
-    with pytest.raises(NotImplementedError, match="sharded train step"):
-        fit_scene_adaptive(scene, cams, targets,
-                           TrainerConfig(steps=2, mesh_shape=(1, 2)),
-                           capacity=64, verbose=False)
+    gt = synthetic_room(300, seed=5, device="cpu")
+    cameras, targets = make_orbit_targets(gt, n_views=2, radius=4.0,
+                                          width=64, height=64)
+    init = synthetic_room(100, seed=6, device="cpu")
+    fitted, history = fit_scene_adaptive(
+        init, cameras, targets,
+        TrainerConfig(steps=30, lr=5e-3, log_every=10, mesh_shape=(1, 2),
+                      pair_capacity=1 << 15, tile_capacity=512),
+        AdaptiveConfig(densify_every=10, grad_threshold=1e-7,
+                       max_new_fraction=0.3),
+        capacity=200, verbose=False)
+    rounds = [h for h in history if "n_alive" in h]
+    assert len(rounds) == 3 and rounds[-1]["n_alive"] > 100
+    assert history[-1]["mse"] < history[0]["mse"]
+    assert fitted.num_gaussians == 200
+    assert int(alive_mask(fitted.opacity_logits).sum()) == \
+        rounds[-1]["n_alive"]
 
 
 def test_with_capacity_matches_jax():

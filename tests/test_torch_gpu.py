@@ -519,3 +519,23 @@ def test_native_decoder_builds_into_build_native():
     b = pn.decode_compressed(chunk, packed, use_native=False)
     for k in a:
         np.testing.assert_allclose(a[k], b[k], atol=1e-5, err_msg=k)
+
+
+def test_band_render_on_a_gloo_mesh_on_the_card():
+    """``render_tile_sharded`` on two gloo ranks sharing the card: the
+    gathered bands within K2's gate (2e-4) of the unsharded frame, overflow
+    0."""
+    import functools
+
+    from sage3d_tpu_torch.parallel.mesh import spawn_mesh
+    from sage3d_tpu_torch.parallel.sharded_render import render_tile_sharded
+    _need_card("K1 and K2 of each band")
+    scene, cam, bk = _frame()
+    with torch.no_grad():
+        ref = trender.render(scene, cam, backend="cuda", **bk)
+    got = spawn_mesh(functools.partial(render_tile_sharded, backend="cuda",
+                                       **bk), (1, 2), scene, cam,
+                     timeout_s=300)
+    assert int(got["overflow"]) == 0 and int(ref["overflow"]) == 0
+    for k in ("rgb", "alpha"):
+        assert float((got[k] - ref[k]).abs().max()) <= 2e-4, k

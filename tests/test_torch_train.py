@@ -230,8 +230,11 @@ def test_pad_scene_to_matches_jax():
 
 
 def test_mesh_of_two_raises(fixture):
+    """A mesh of more than one rank runs one process per rank: outside a
+    process group the shape raises, naming spawn_mesh; (1, 1) is the direct
+    path."""
     tstart, tcams = fixture[3], fixture[4]
     for mesh in ((1, 2), (2, 1)):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
+        with pytest.raises(ValueError, match="spawn_mesh"):
             ttrain.make_train_step(tstart, tcams, mesh=mesh)
     ttrain.make_train_step(tstart, tcams, mesh=(1, 1))
