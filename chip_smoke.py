@@ -8,8 +8,9 @@ Phases, in order (any failed check makes the script exit non-zero and print
 no result line):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile the CUDA kernels from ``sage3d_tpu_torch/csrc`` with nvcc,
-     one process per source, all at once;
+  2. build: compile the seven CUDA sources of ``sage3d_tpu_torch/csrc``
+     (K1-K6 and the K2 anatomy probe) with nvcc, one process per source, all
+     at once;
   3. K1 (``csrc/emit.cu``) against its plain PyTorch version on the live
      slots of the 1080p frame of a 1M-Gaussian scene, fused key (mult > 0)
      and two-key (mult == 0) modes: the pairs, sorted by key, must be equal;
@@ -85,11 +86,16 @@ no result line):
      pruned query must agree below the margin (hit, hit_count, nearest_id
      equal, clearance within ``NAV_CLEAR_TOL``), on the card and against the
      same port code on a CPU copy of the scene; the clearance's gradient
-     w.r.t. ``p0`` must be finite; ms and launches a query for B = 1 and 64;
+     w.r.t. ``p0`` must be finite; K6 (``csrc/capsule.cu``) against its
+     plain twin on the card, dense and pruned at B = 1, 4 and 64: the
+     winning index, hit_count and chunks_visited equal, the clearance within
+     ``NAV_CLEAR_TOL``; per query through the entry points: ms (events),
+     back-to-back and host ms, device busy, one K6 launch, host syncs (the
+     pruned query none), peak memory; K6 alone at the rollout's B = 1;
      9b, ``rollout`` for ``NAV_STEPS`` steps at 640x480 (the env's frame)
      over a 200x200 wall grid, budgets from ``autotune_poses`` over 16 poses
-     (``pair_margin=1.5``), dense and pruned: overflow 0, K1 and K2 launched
-     once a step (counted from 0 around the call), positions equal, the
+     (``pair_margin=1.5``), dense and pruned: overflow 0, K1, K2 and K6
+     launched once a step (counted from 0 around the call), positions equal, the
      agent moves > 0.3 m; env-steps/s, the step split into render, policy
      and physics, and collision (CUDA events over a replay of the loop),
      device busy and idle share a step, peak memory; ``rollout_batch`` B = 4
@@ -104,11 +110,14 @@ no result line):
      honoured; ms a step, ``get_rgb`` and ``apply_cmd_for``, host syncs a step;
  10. the SAGE-Bench data path (``data_path``): 10a, the wavefront planner
      (``sage3d_tpu_torch.benchmarks.planner_bench``) on its 240x240 indoor
-     grid and at 400x400 (a 20x20 m apartment at 0.05 m/px), 64 pairs each:
+     grid and at 400x400 (a 20x20 m apartment at 0.05 m/px), 64 pairs each,
+     K5 (``csrc/wavefront.cu``) counted from 0 around each run:
      reachability equal to host A*'s and path lengths within max(2, 2%), the
-     card's distance fields bitwise the CPU's; pairs/s, ms, relaxations,
-     launches, host syncs and device busy a batch of 16, and the bytes bound
-     of its relaxations; 10b, ``process_scene`` with ``MockLLMClient`` on a
+     card's distance fields bitwise the CPU's and K5's plain twin's on the
+     card with the same relaxation count, one launch's field and flag
+     bitwise; pairs/s, ms, relaxations, K5 launches (at most one per 8
+     relaxations plus the chain's 7), host syncs and device busy a batch of
+     16, and the bound of its relaxations; K5 alone at 240x240; 10b, ``process_scene`` with ``MockLLMClient`` on a
      semantic map of the 1M room (its walls, its 8 objects as 0.8 m
      squares): the batched planner runs, every point lies on a free cell;
      trajectories/s and the planner's share; 10c, ``transform_2d3d``, merge,
@@ -230,6 +239,21 @@ FP32_OPS_PER_S = 67e12
 K1_OPS_PER_SLOT = 90
 K2_OPS_PER_EVAL, K2_OPS_PER_HIT = 18, 14
 K3_OPS_PER_EVAL, K3_OPS_PER_HIT = 18, 32
+# K5 and K6 build with -fmad=false and do no FMA: each f32 operation is one
+# instruction a lane, at half the FMA rate.
+FP32_NONFMA_OPS_PER_S = 33.5e12
+# K5, one cell of one relaxation: 8 neighbour adds and 8 minima, the
+# obstacle add and the clamp.
+K5_OPS_PER_CELL = 18
+# K6, a division or a sqrtf counted as one operation: every Gaussian, the
+# quaternion's norm and normalisation, the rotation's nine entries, three
+# exps and the solid test (60); every pair with a solid Gaussian, t and the
+# closest point, dist, the three rotated coordinates and their squares,
+# maha, support, the clearance, the contact test and the key test (60).
+# Non-solid Gaussians do no pair work. The scene's bytes: means, quats,
+# log-scales and the opacity, 44 a Gaussian.
+K6_OPS_PER_GAUSSIAN, K6_OPS_PER_PAIR = 60, 60
+K6_BYTES_PER_GAUSSIAN = 44
 
 # Phase 9, the navigation path on the 1M room.
 NAV_W, NAV_H = 640, 480  # the env's own frame (vln_env.py's defaults)
@@ -654,7 +678,7 @@ def navigation(room, card: str) -> list:
     from sage3d_tpu_torch.env.rollout import (depth_seek_policy, rollout,
                                               rollout_batch)
     from sage3d_tpu_torch.env.vln_env import GaussianVLNEnv
-    from sage3d_tpu_torch.ops import binning, composite_cuda
+    from sage3d_tpu_torch.ops import binning, collision, composite_cuda
     from sage3d_tpu_torch.ops.collision import (agent_capsule,
                                                 build_collision_accel,
                                                 capsule_query,
@@ -671,8 +695,9 @@ def navigation(room, card: str) -> list:
     from sage3d_tpu_torch.serve.scripted_server import ScriptedPolicyServer
 
     dev = room.device
-    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd)
-    launched = [0, 0]
+    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd,
+               collision.capsule_best)
+    launched = [0, 0, 0]
     peak = [torch.cuda.max_memory_allocated()]     # the phase's, over resets
 
     def reset_peak() -> int:
@@ -684,15 +709,15 @@ def navigation(room, card: str) -> list:
         return torch.cuda.memory_allocated()
 
     def counted(fn):
-        """``fn()`` with K1's and K2's counters set to 0 just before and read
-        just after; the counts join the phase's launches."""
+        """``fn()`` with K1's, K2's and K6's counters set to 0 just before
+        and read just after; the counts join the phase's launches."""
         for k in kernels:
             k.launches = 0
         out = fn()
         torch.cuda.synchronize()
         n = [k.launches for k in kernels]
-        launched[0] += n[0]
-        launched[1] += n[1]
+        for i, v in enumerate(n):
+            launched[i] += v
         return out, n
 
     # 9a. collision at full size ---------------------------------------------
@@ -752,13 +777,41 @@ def navigation(room, card: str) -> list:
         capsule_query(room, leaf, p1, r)["clearance"].sum(), leaf)
     check(bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0,
           "9a: the clearance's gradient w.r.t. p0 is finite and non-zero")
-    for b in (1, 64):
+    # K6 against its plain twin on the card, on the inputs the queries give
+    # it: the indices, contact counts and visited chunks equal, the
+    # clearances the same f32 operations (0 expected). Then each query's
+    # cost through its entry point.
+    cols = {"dense": (collision._columns(room), None),
+            "pruned": (collision._columns(accel.scene),
+                       (accel.aabb_min, accel.aabb_max, accel.max_scale,
+                        NAV_MARGIN))}
+    k6 = {"max_abs_err": 0.0}
+    for b in (1, 4, 64):
+        q = collision._queries(p0[:b], p1[:b], r, dev)
+        for name, (cols_k, prune) in cols.items():
+            got = collision.capsule_best(q, cols_k, prune=prune)
+            want = collision.capsule_best_plain(q, cols_k, prune=prune)
+            torch.cuda.synchronize()
+            err = float((got[0] - want[0]).abs().max())
+            same = all(torch.equal(got[k], want[k]) for k in (1, 2, 3))
+            k6["max_abs_err"] = max(k6["max_abs_err"], err)
+            print(f"9a K6 {name} B={b} vs its plain twin on the card: "
+                  f"index, hit_count, chunks_visited equal {same}, max "
+                  f"|clearance diff| {err:.3e}", flush=True)
+            check(same and err <= NAV_CLEAR_TOL,
+                  f"9a K6 {name} B={b}: index, hit_count and chunks visited "
+                  f"equal to the plain twin's on the card, clearance within "
+                  f"{NAV_CLEAR_TOL}")
+    for b in (1, 4, 64):
         for name, fn in (
                 ("dense", lambda: capsule_query(room, p0[:b], p1[:b], r)),
                 ("pruned", lambda: capsule_query_pruned(
                     accel, p0[:b], p1[:b], r, prune_margin=NAV_MARGIN))):
             ms = cuda_ms(fn, reps=10, warmup=2)
+            b2b, host = back_to_back_ms(fn)
             busy, n_ops, _ = device_busy(fn, reps=5)
+            _, k6_n = launches_of([collision.capsule_best], fn)
+            _, syncs = counting_syncs(fn)
             held = reset_peak()
             res = fn()
             torch.cuda.synchronize()
@@ -767,10 +820,40 @@ def navigation(room, card: str) -> list:
                        f"{n_chunks}" if name == "pruned" else "")
             del res
             print(f"9a capsule query {name} B={b} {card}: {ms:.3f} ms a query "
-                  f"(CUDA events, median of 10), device busy {busy:.3f} ms, "
-                  f"{n_ops:.0f} kernels and copies a query{visited}, peak "
+                  f"(CUDA events, median of 10), {b2b:.4f} ms back to back, "
+                  f"host {host:.4f} ms, device busy {busy:.4f} ms, "
+                  f"{n_ops:.0f} kernels and copies a query, K6 launches "
+                  f"{k6_n[0]}, host syncs {syncs}{visited}, peak "
                   f"device memory {q_peak / 2**20:.1f} MiB above what was "
                   f"held", flush=True)
+            check(k6_n[0] == 1, f"9a {name} B={b}: one K6 launch a query")
+            if name == "pruned":
+                check(syncs == 0, f"9a pruned B={b}: no host sync")
+
+    # K6 alone at the rollout's query (B = 1, dense), for the kernels line.
+    q1 = collision._queries(p0[:1], p1[:1], r, dev)
+    cols_d = cols["dense"][0]
+    k6["ms"] = cuda_ms(lambda: collision.capsule_best(q1, cols_d), reps=20,
+                       warmup=3)
+    k6["back_to_back_ms"], k6["host_ms"] = back_to_back_ms(
+        lambda: collision.capsule_best(q1, cols_d))
+    k6["plain_ms"] = cuda_ms(lambda: collision.capsule_best_plain(
+        q1, cols_d), reps=5, warmup=1)
+    n_g = room.num_gaussians
+    n_solid = int((cols_d[3] >= collision.DEFAULT_OPACITY_THRESH).sum())
+    k6_bytes = n_g * K6_BYTES_PER_GAUSSIAN + 7 * 4 + 16
+    k6_ops = n_g * K6_OPS_PER_GAUSSIAN + n_solid * K6_OPS_PER_PAIR
+    t_b, t_o = k6_bytes / HBM_BYTES_PER_S, k6_ops / FP32_NONFMA_OPS_PER_S
+    k6["bound_ms"] = max(t_b, t_o) * 1e3
+    k6["bound_by"] = "bytes" if t_b >= t_o else "operations"
+    b64 = (n_g * K6_OPS_PER_GAUSSIAN + 64 * n_solid * K6_OPS_PER_PAIR) \
+        / FP32_NONFMA_OPS_PER_S * 1e3
+    print(f"K6 dense B=1 {card}: {k6['ms']:.4f} ms (events around one "
+          f"call), {k6['back_to_back_ms']:.4f} ms back to back, host "
+          f"{k6['host_ms']:.4f} ms; plain twin {k6['plain_ms']:.3f} ms; bound "
+          f"{k6['bound_ms']:.4f} ms ({k6['bound_by']}: {k6_bytes / 1e6:.1f} "
+          f"MB, {k6_ops:.4e} operations, {n_solid} solid of {n_g}); the "
+          f"operations bound at B=64 {b64:.4f} ms", flush=True)
 
     # 9b. rollouts -----------------------------------------------------------
     mask = np.zeros((200, 200), np.uint8)
@@ -798,7 +881,7 @@ def navigation(room, card: str) -> list:
     print(f"9b rollout dense, {NAV_STEPS} steps at {NAV_W}x{NAV_H} on the "
           f"room "
           f"{card}: {NAV_STEPS / wall:.2f} env-steps/s ({step_ms:.3f} ms a "
-          f"step), launches K1 {n[0]} K2 {n[1]}, total_overflow "
+          f"step), launches K1 {n[0]} K2 {n[1]} K6 {n[2]}, total_overflow "
           f"{int(out['total_overflow'])}, moved {moved:.3f} m, goal distance "
           f"{float(out['goal_distance'][0]):.3f} -> "
           f"{float(out['goal_distance'][-1]):.3f} m, collisions "
@@ -806,7 +889,7 @@ def navigation(room, card: str) -> list:
           f"{float(out['min_clearance'].min()):.3f} m, peak device memory "
           f"{roll_peak / 2**30:.2f} GiB", flush=True)
     check(int(out["total_overflow"]) == 0, "9b: overflow 0 on every step")
-    check(n == [NAV_STEPS, NAV_STEPS], "9b: K1 and K2 launched once a step")
+    check(n == [NAV_STEPS] * 3, "9b: K1, K2 and K6 launched once a step")
     check(moved > 0.3, "9b: the agent moves more than 0.3 m")
     check(all(bool(torch.isfinite(out[k]).all()) for k in
               ("positions", "min_clearance", "goal_distance", "mean_depth")),
@@ -823,13 +906,14 @@ def navigation(room, card: str) -> list:
         if bool(below.any()) else 0.0
     print(f"9b rollout pruned {card}: {NAV_STEPS / wall_p:.2f} env-steps/s "
           f"({wall_p * 1e3 / NAV_STEPS:.3f} ms a step), launches K1 {n_p[0]} "
-          f"K2 {n_p[1]}, positions "
+          f"K2 {n_p[1]} K6 {n_p[2]}, positions "
           f"max |diff| {pos_err:.3e}, clearance below the margin max |diff| "
           f"{clear_err:.3e} ({int(below.sum())} steps)", flush=True)
     check(pos_err <= NAV_CLEAR_TOL and clear_err <= NAV_CLEAR_TOL
-          and int(out_p["total_overflow"]) == 0,
+          and int(out_p["total_overflow"]) == 0 and n_p == [NAV_STEPS] * 3,
           "9b: pruned rollout's positions and clearance equal the dense "
-          f"one's within {NAV_CLEAR_TOL}, overflow 0")
+          f"one's within {NAV_CLEAR_TOL}, overflow 0, K1, K2 and K6 once a "
+          "step")
 
     # Where a step's time goes: the rollout's loop replayed with CUDA events
     # between its stages (its positions must be the rollout's).
@@ -903,14 +987,15 @@ def navigation(room, card: str) -> list:
             worst = max(worst, float((v.double() - other.double()
                                       ).abs().max()))
         print(f"9b rollout_batch {mode} B=4, {NAV_BATCH_STEPS} steps: "
-              f"launches K1 {n_b[0]} K2 {n_b[1]}, total_overflow per episode "
+              f"launches K1 {n_b[0]} K2 {n_b[1]} K6 {n_b[2]}, total_overflow "
+              f"per episode "
               f"{batch['total_overflow'].tolist()}, vs the single rollouts "
               f"max |diff| {worst:.3e}, bitwise {bitwise}", flush=True)
-        check(n_b == [4 * NAV_BATCH_STEPS] * 2
+        check(n_b == [4 * NAV_BATCH_STEPS] * 3
               and int(batch["total_overflow"].sum()) == 0
               and worst <= NAV_CLEAR_TOL,
-              f"9b rollout_batch {mode}: K1 and K2 once a step, overflow 0, "
-              "equal to the single rollouts")
+              f"9b rollout_batch {mode}: K1, K2 and K6 once a step, overflow "
+              "0, equal to the single rollouts")
 
     # K1 and K2 against their plain versions at this path's own shapes and
     # budgets: the densest probe pose (the most chunks walked) and the
@@ -1033,7 +1118,7 @@ def navigation(room, card: str) -> list:
           "9c: the scripted server's STOP is honoured on step 4")
     tmpdir.cleanup()
     reset_peak()
-    return launched, peak[0], budgets
+    return launched, peak[0], budgets, k6
 
 
 def data_semantic_map(room) -> list:
@@ -1121,8 +1206,11 @@ def data_path(room, room_200k, card: str) -> list:
     tmp = Path(tmpdir.name)
 
     # 10a. the planner ----------------------------------------------------------
+    k5 = {"launches": 0, "max_abs_err": 0.0}
     for size, n_pairs, n_astar in PLANNER_GRIDS:
+        astar.relax_tiles.launches = 0
         res = planner_bench.run(size, n_pairs, device=dev, n_astar=n_astar)
+        k5["launches"] += astar.relax_tiles.launches
         print(f"10a planner_bench {size}x{size} {card}: {json.dumps(res)}",
               flush=True)
         check(res["reachability_agree"] == n_astar
@@ -1138,30 +1226,87 @@ def data_path(room, room_200k, card: str) -> list:
                                                  return_relaxations=True)
         same = torch.equal(d_card.cpu(), d_cpu) and n_card == n_cpu
         check(same, f"10a {size}x{size}: the card's distance fields are "
-              "bitwise the CPU's (16 sources)")
-        del d_card, d_cpu
+              "bitwise the CPU's (16 sources), relaxation counts equal")
+        # K5 against its plain twin on the card: the whole loop, and one
+        # launch from the first field
+        free_t = torch.as_tensor(g == 0, device=dev)
+        src_t = torch.as_tensor(src, device=dev).long()
+        d_plain, n_plain = astar._relax_until_converged(
+            free_t, src_t, astar.relax_tiles_plain)
+        same = torch.equal(d_card, d_plain) and n_card == n_plain
+        first = torch.full_like(d_card, astar.INF)
+        first[torch.arange(BATCH_PLAN, device=dev), src_t[:, 0],
+              src_t[:, 1]] = 0.0
+        outs = [torch.empty_like(first), torch.empty_like(first)]
+        flags = torch.zeros((2,), dtype=torch.int32, device=dev)
+        astar.relax_tiles(first, outs[0], free_t, None, flags[0])
+        astar.relax_tiles_plain(first, outs[1], free_t, None, flags[1])
+        torch.cuda.synchronize()
+        err = float((outs[0] - outs[1]).abs().max())
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+        print(f"10a K5 {size}x{size} vs its plain twin on the card: fields "
+              f"bitwise {same}, relaxations {n_card} and {n_plain}; one "
+              f"launch max |diff| {err:.3e}, flags {flags.tolist()}",
+              flush=True)
+        check(same and err == 0.0 and flags.tolist() == [1, 1],
+              f"10a {size}x{size}: K5's fields and flags bitwise its plain "
+              "twin's on the card, relaxation counts equal")
+        if size == PLANNER_GRIDS[0][0]:
+            # one launch at the planner's batch, for the kernels line
+            def k5_run():
+                astar.relax_tiles(first, outs[0], free_t, None, flags[0])
+
+            k5["ms"] = cuda_ms(k5_run, reps=20, warmup=3)
+            k5["back_to_back_ms"], k5["host_ms"] = back_to_back_ms(k5_run)
+            k5["plain_ms"] = cuda_ms(lambda: astar.relax_tiles_plain(
+                first, outs[1], free_t, None, flags[1]), reps=5, warmup=1)
+            cells = BATCH_PLAN * size * size
+            t_b = (2 * cells * 4 + size * size) / HBM_BYTES_PER_S
+            t_o = astar.CHECK_EVERY * cells * K5_OPS_PER_CELL \
+                / FP32_NONFMA_OPS_PER_S
+            k5["bound_ms"] = max(t_b, t_o) * 1e3
+            k5["bound_by"] = "bytes" if t_b >= t_o else "operations"
+            print(f"K5 one launch, {BATCH_PLAN} sources at {size}x{size} "
+                  f"{card}: {k5['ms']:.4f} ms (events around one call), "
+                  f"{k5['back_to_back_ms']:.4f} ms back to back, host "
+                  f"{k5['host_ms']:.4f} ms; plain twin {k5['plain_ms']:.3f} "
+                  f"ms; bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}: "
+                  f"bytes {t_b * 1e3:.4f} ms, operations {t_o * 1e3:.4f} ms "
+                  f"at the non-FMA rate)", flush=True)
+        del d_card, d_cpu, d_plain, first, outs
 
         def one_batch():
             return astar.plan_many(g == 0, src, dst, device=dev)
 
         one_batch()
         t0 = time.perf_counter()
-        _, syncs = counting_syncs(one_batch)
+        (_, k5_n), syncs = counting_syncs(
+            lambda: launches_of([astar.relax_tiles], one_batch))
         batch_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         one_batch()
         batch_ms = min(batch_ms, (time.perf_counter() - t0) * 1e3)
         busy, n_ops, top = device_busy(one_batch, reps=1)
-        relax_bytes = 2 * BATCH_PLAN * size * size * 4
-        bound = n_card * relax_bytes / HBM_BYTES_PER_S * 1e3
+        cells = BATCH_PLAN * size * size
+        launch_bytes = 2 * cells * 4 + size * size
+        bound = n_card // astar.CHECK_EVERY * max(
+            launch_bytes / HBM_BYTES_PER_S, astar.CHECK_EVERY * cells
+            * K5_OPS_PER_CELL / FP32_NONFMA_OPS_PER_S) * 1e3
         print(f"10a one batch of {BATCH_PLAN} at {size}x{size} {card}: "
               f"{batch_ms:.3f} ms (host clock, the fields' copy included), "
-              f"{n_card} relaxations, {n_ops:.0f} kernels and copies "
-              f"({n_ops / n_card:.1f} a relaxation), {syncs} host syncs; "
-              f"device busy {busy:.3f} ms, idle share "
-              f"{1.0 - busy / batch_ms:.3f}; bytes bound of the relaxations "
-              f"{bound:.4f} ms ({relax_bytes / 1e6:.2f} MB read and written "
-              f"a relaxation, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+              f"{n_card} relaxations, K5 launches {k5_n[0]} "
+              f"({n_card // astar.CHECK_EVERY} that relax), {n_ops:.0f} "
+              f"kernels and copies, {syncs} host syncs; device busy "
+              f"{busy:.3f} ms, idle share {1.0 - busy / batch_ms:.3f}; bound "
+              f"of the relaxations {bound:.4f} ms (per launch the larger of "
+              f"{launch_bytes / 1e6:.2f} MB read and written at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s and "
+              f"{K5_OPS_PER_CELL} operations a cell and relaxation at "
+              f"{FP32_NONFMA_OPS_PER_S / 1e12:.1f} T/s)", flush=True)
+        check(k5_n[0] <= n_card // astar.CHECK_EVERY + astar.CHAIN - 1,
+              f"10a {size}x{size}: at most one K5 launch per "
+              f"{astar.CHECK_EVERY} relaxations, plus the chain's "
+              f"{astar.CHAIN - 1} after convergence")
         for kname, kms, kn in top[:3]:
             print(f"  top kernel planner {size}: {kms:.3f} ms, {kn:g} "
                   f"launches a batch: {kname}", flush=True)
@@ -1453,7 +1598,7 @@ def data_path(room, room_200k, card: str) -> list:
           "10d: each file hot-swapped its scene in; the env ends with the last"
           " scene's budgets")
     tmpdir.cleanup()
-    return launched
+    return launched, k5
 
 
 def launches_of(kernels, fn):
@@ -2470,6 +2615,8 @@ def main() -> int:
     secs = _build.build_all()
     print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
+    check(len(secs) == 7 and all(_build._target(k).exists() for k in secs),
+          "build: the seven CUDA sources (K1-K6 and the K2 probe) built")
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -3212,19 +3359,21 @@ def main() -> int:
     # 9. the navigation path --------------------------------------------------------
     script_peak = max(script_peak, torch.cuda.max_memory_allocated())
     t0 = time.perf_counter()
-    launches_nav, nav_peak, nav_budgets = navigation(frames["a_1080p_1M"][0],
-                                                     card)
+    launches_nav, nav_peak, nav_budgets, k6 = navigation(
+        frames["a_1080p_1M"][0], card)
     print(f"navigation phase {card}: {time.perf_counter() - t0:.1f} s, "
-          f"launches K1 {launches_nav[0]} K2 {launches_nav[1]}, peak device "
+          f"launches K1 {launches_nav[0]} K2 {launches_nav[1]} K6 "
+          f"{launches_nav[2]}, peak device "
           f"memory {nav_peak / 2**30:.2f} GiB", flush=True)
     script_peak = max(script_peak, nav_peak)
 
     # 10. the data path -------------------------------------------------------------
     t0 = time.perf_counter()
-    launches_data = data_path(frames["a_1080p_1M"][0],
-                              frames["c_env_640x480_200k"][0], card)
+    launches_data, k5 = data_path(frames["a_1080p_1M"][0],
+                                  frames["c_env_640x480_200k"][0], card)
     print(f"data phase {card}: {time.perf_counter() - t0:.1f} s, launches "
-          f"K1 {launches_data[0]} K2 {launches_data[1]}", flush=True)
+          f"K1 {launches_data[0]} K2 {launches_data[1]} K5 "
+          f"{k5['launches']}", flush=True)
     script_peak = max(script_peak, torch.cuda.max_memory_allocated())
 
     # 11. serving ---------------------------------------------------------------------
@@ -3309,6 +3458,22 @@ def main() -> int:
          "variant_ms": {n: v["ms"] for n, v in anatomy["variants"].items()},
          "registers": {n: v["registers"]
                        for n, v in anatomy["variants"].items()}},
+        {"name": "K5 relax_tiles", "route": "cuda",
+         "source": "sage3d_tpu_torch/csrc/wavefront.cu",
+         "replaces": "sage3d_tpu/data/astar.py:147",
+         "launches": k5["launches"], "max_abs_err": k5["max_abs_err"],
+         "ms": k5["ms"], "back_to_back_ms": k5["back_to_back_ms"],
+         "host_ms": k5["host_ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": None},
+        {"name": "K6 capsule_best", "route": "cuda",
+         "source": "sage3d_tpu_torch/csrc/capsule.cu",
+         "replaces": "sage3d_tpu/ops/collision.py:41",
+         "launches": launches_nav[2], "max_abs_err": k6["max_abs_err"],
+         "ms": k6["ms"], "back_to_back_ms": k6["back_to_back_ms"],
+         "host_ms": k6["host_ms"], "plain_ms": k6["plain_ms"],
+         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+         "library_ms": None},
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel of the path launched on the main path")

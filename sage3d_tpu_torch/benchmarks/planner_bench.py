@@ -10,7 +10,8 @@ same numpy draws, so the same grid and pairs. The stated purpose of
 runs in trajectory generation; this measures that claim on a realistic nav
 grid. Prints one JSON line: pairs/s of both planners (host clock; the
 wavefront's ends in its fields' copy to the host), ms per batch of 16, the
-relaxations each batch ran to convergence, and whether every pair's
+relaxations each batch ran to convergence and its launches of kernel K5
+(none on the CPU, where the plain twin runs), and whether every pair's
 reachability and path length agree with A* (lengths within max(2, 2%)).
 ``--astar-pairs`` runs A* on the first N pairs only (all by default): at
 400x400 one A* takes most of a second on the host.
@@ -28,7 +29,8 @@ import time
 import numpy as np
 import torch
 
-from ..data.astar import astar_pixel, plan_many, wavefront_distances
+from ..data.astar import (astar_pixel, plan_many, relax_tiles,
+                          wavefront_distances)
 from ..renderer.scene import resolve_device
 
 BATCH = 16      # plan_many's sources per wavefront
@@ -95,9 +97,13 @@ def run(size: int = 240, n_pairs: int = 64, device=None,
     wf_paths = plan_many(g == 0, starts, goals, batch=BATCH, device=dev)
     t_wf = time.perf_counter() - t0
     n_batches = -(-n_pairs // BATCH)
-    relaxations = [wavefront_distances(g == 0, starts[i:i + BATCH],
-                                       device=dev, return_relaxations=True)[1]
-                   for i in range(0, n_pairs, BATCH)]
+    relaxations, launches = [], []
+    for i in range(0, n_pairs, BATCH):
+        before = relax_tiles.launches
+        relaxations.append(wavefront_distances(
+            g == 0, starts[i:i + BATCH], device=dev,
+            return_relaxations=True)[1])
+        launches.append(relax_tiles.launches - before)
     return {
         "metric": "planner_pairs_per_s",
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -113,6 +119,7 @@ def run(size: int = 240, n_pairs: int = 64, device=None,
         "wavefront_pairs_per_s": n_pairs / t_wf,
         "wavefront_ms_per_batch": t_wf * 1e3 / n_batches,
         "relaxations_per_batch": relaxations,
+        "kernel_launches_per_batch": launches,
         "reachability_agree": lengths_agree(astar_paths, wf_paths[:n_astar]),
         "reach_astar": sum(p is not None for p in astar_paths),
         "reach_wavefront": sum(p is not None for p in wf_paths[:n_astar]),

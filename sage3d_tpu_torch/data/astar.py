@@ -7,17 +7,19 @@ endpoint pair at a time with heapq A* over the occupancy grid
 heuristic) and finds snap-on targets via a boundary BFS (:309-344). Both are
 host numpy, copied from the JAX package. ``wavefront_distances`` computes the
 geodesic distance field from MANY sources at once by iterated 8-neighbour
-min-relaxation, as tensor ops on ``device``; paths are then recovered by
-greedy descent on the host. For the trajectory-generation workload (thousands
-of candidate pairs per scene), one wavefront per endpoint replaces thousands
-of serial A* runs.
+min-relaxation on ``device``; paths are then recovered by greedy descent on
+the host. For the trajectory-generation workload (thousands of candidate
+pairs per scene), one wavefront per endpoint replaces thousands of serial A*
+runs.
 
 The relaxation keeps the JAX version's arithmetic step for step (f32,
 ``INF = 1e9``, the neighbour order of ``_NEIGHBORS``, ``best + free_f`` then
 ``min(., INF)``, convergence when no cell drops by more than 1e-6 over a
 check of 8 relaxations), so the fields are bitwise the JAX package's: every
-candidate is one f32 add and ``min`` is exact. The JAX ``while_loop``
-becomes a Python loop with one host read of "changed" every 8 relaxations.
+candidate is one f32 add and ``min`` is exact. One trip of the JAX
+``while_loop`` body (8 relaxations and the changed test) is one launch of
+kernel K5 (``csrc/wavefront.cu``) on the card, or of its plain twin
+``relax_tiles_plain`` on the CPU; the relaxation count is JAX's.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..renderer.scene import resolve_device
 
 SQRT2 = math.sqrt(2.0)
@@ -151,7 +154,127 @@ def instance_centroid_px(mask_coords) -> Optional[Tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 INF = 1e9
-CHECK_EVERY = 8     # relaxations per host read of "changed"
+CHECK_EVERY = 8     # relaxations a launch of K5, between convergence tests
+TILE = 32           # K5's output tile side; its halo is CHECK_EVERY cells
+CHAIN = 8           # K5 launches queued between host reads of their flags
+
+
+def relax_tiles_plain(src: torch.Tensor, dst: torch.Tensor,
+                      free_t: torch.Tensor, prev_flag, flag) -> None:
+    """Plain version of K5 (``csrc/wavefront.cu``), in its decomposition:
+    CHECK_EVERY Jacobi relaxations of ``src`` (B, H, W) into ``dst``, tile by
+    tile. Each TILE x TILE output tile is computed from its region with a
+    CHECK_EVERY-cell halo (cells outside the grid INF), relaxation s on the
+    cells at least s inside the region, so the tile is exact after the last.
+    ``flag`` (an int32 element) is set to 1 where a cell ends below its value
+    in ``src`` minus 1e-6; with ``prev_flag`` given and 0, nothing runs."""
+    if prev_flag is not None and int(prev_flag) == 0:
+        return
+    b, h, w = src.shape
+    dev, f32 = src.device, torch.float32
+    ty, tx = -(-h // TILE), -(-w // TILE)
+    halo, side = CHECK_EVERY, TILE + 2 * CHECK_EVERY
+    padded = (b, ty * TILE + 2 * halo, tx * TILE + 2 * halo)
+    field = torch.full(padded, INF, dtype=f32, device=dev)
+    field[:, halo:halo + h, halo:halo + w] = src
+    wall = torch.full(padded[1:], INF, dtype=f32, device=dev)
+    wall[halo:halo + h, halo:halo + w] = torch.where(
+        free_t, torch.zeros((), dtype=f32, device=dev),
+        torch.tensor(INF, dtype=f32, device=dev))
+    # (b, ty, tx, side, side) regions, overlapping by 2 * halo
+    cur = field.unfold(1, side, TILE).unfold(2, side, TILE).contiguous()
+    wall = wall.unfold(0, side, TILE).unfold(1, side, TILE)
+    nxt = cur.clone()
+    inf = torch.tensor(INF, dtype=f32, device=dev)
+    costs = [torch.tensor(c, dtype=f32, device=dev) for _, _, c in _NEIGHBORS]
+    for s in range(1, CHECK_EVERY + 1):
+        n = side - 2 * s
+        best = cur[..., s:s + n, s:s + n].clone()
+        for (dy, dx, _), cost in zip(_NEIGHBORS, costs):
+            # shifted[y, x] = d[y - dy, x - dx]
+            torch.minimum(best, cur[..., s - dy:s - dy + n, s - dx:s - dx + n]
+                          + cost, out=best)
+        nxt[..., s:s + n, s:s + n] = torch.minimum(
+            best + wall[..., s:s + n, s:s + n], inf)
+        cur, nxt = nxt, cur
+    tiles = cur[..., halo:halo + TILE, halo:halo + TILE]  # (b, ty, tx, T, T)
+    out = tiles.permute(0, 1, 3, 2, 4).reshape(b, ty * TILE, tx * TILE)
+    dst.copy_(out[:, :h, :w])
+    if bool(torch.any(dst < src - torch.tensor(1e-6, dtype=f32, device=dev))):
+        flag.fill_(1)
+
+
+def relax_tiles(src: torch.Tensor, dst: torch.Tensor, free_t: torch.Tensor,
+                prev_flag, flag) -> None:
+    """CHECK_EVERY relaxations of the fields ``src`` (B, H, W) float32 into
+    ``dst``, setting the int32 element ``flag`` where any cell dropped by
+    more than 1e-6; ``prev_flag`` None, or the previous launch's flag: where
+    it is 0 the launch does nothing. ``free_t`` is the (H, W) bool grid.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K5
+    (``csrc/wavefront.cu``), which never waits for the card."""
+    if src.dim() != 3 or src.dtype != torch.float32:
+        raise ValueError("relax_tiles: src must be (B, H, W) float32")
+    if dst.shape != src.shape or dst.dtype != src.dtype:
+        raise ValueError("relax_tiles: dst must match src")
+    if free_t.dtype != torch.bool or free_t.shape != src.shape[1:]:
+        raise ValueError("relax_tiles: free must be an (H, W) bool grid")
+    flags = [flag] if prev_flag is None else [prev_flag, flag]
+    if any(f.dtype != torch.int32 or f.numel() != 1 for f in flags):
+        raise ValueError("relax_tiles: flags must be int32 elements")
+    dev = src.device
+    if any(t.device != dev for t in [dst, free_t] + flags):
+        raise ValueError("relax_tiles: inputs on different devices")
+    if dev.type == "cpu":
+        return relax_tiles_plain(src, dst, free_t, prev_flag, flag)
+    if dev.type != "cuda":
+        raise ValueError(f"relax_tiles: unsupported device {dev}")
+    if not (src.is_contiguous() and dst.is_contiguous()
+            and free_t.is_contiguous()):
+        raise ValueError("relax_tiles: src, dst and free must be contiguous")
+    if src.shape[0] > 65535:
+        raise ValueError("relax_tiles: at most 65535 sources a launch")
+    err = _build.launch(
+        _build.load("wavefront").sage3d_wavefront_relax, dev,
+        src.data_ptr(), dst.data_ptr(), free_t.data_ptr(), *src.shape,
+        None if prev_flag is None else prev_flag.data_ptr(), flag.data_ptr())
+    _build.check(err, "relax_tiles")
+    relax_tiles.launches += 1
+
+
+relax_tiles.launches = 0
+
+
+def _relax_until_converged(free_t: torch.Tensor, src: torch.Tensor, relax):
+    """The JAX ``while_loop``: launches of ``relax`` (each CHECK_EVERY
+    relaxations) until one finds no change, or the cap of H*W + 64
+    relaxations. Launches are queued CHAIN at a time, each after the one
+    before on the device, and their flags read once; a launch after the one
+    that converged does nothing. Returns the field and the relaxations run,
+    JAX's count."""
+    dev = free_t.device
+    h, w = free_t.shape
+    b = src.shape[0]
+    f32 = torch.float32
+    cap = h * w + 64
+    n_max = -(-cap // CHECK_EVERY)          # launches the cap allows
+    bufs = [torch.full((b, h, w), INF, dtype=f32, device=dev),
+            torch.empty((b, h, w), dtype=f32, device=dev)]
+    bufs[0][torch.arange(b, device=dev), src[:, 0], src[:, 1]] = 0.0
+    bufs[0] += torch.where(free_t, torch.zeros((), dtype=f32, device=dev),
+                           torch.tensor(INF, dtype=f32, device=dev))
+    flags = torch.zeros((n_max,), dtype=torch.int32, device=dev)
+    ran = 0
+    while ran < n_max:
+        k0, n = ran, min(CHAIN, n_max - ran)
+        for k in range(k0, k0 + n):
+            relax(bufs[k % 2], bufs[(k + 1) % 2], free_t,
+                  flags[k - 1] if k > k0 else None, flags[k])
+        got = flags[k0:k0 + n].tolist()                 # one host read
+        ran = k0 + (got.index(0) + 1 if 0 in got else n)
+        if 0 in got:
+            break
+    return bufs[ran % 2], ran * CHECK_EVERY
 
 
 @torch.no_grad()
@@ -172,51 +295,14 @@ def wavefront_distances(free, sources, device=None,
     cap of H*W + 64 is a safety bound only, since a shortest 8-connected
     path can wind through O(H*W) cells.
 
-    The distances live in the interior of a (B, H+2, W+2) buffer whose
-    border holds INF, so each neighbour's shifted field is a view of it. A
-    relaxation is 19 elementwise launches: a copy, an add and a minimum per
-    neighbour, the obstacle add and the clamp; every 8 relaxations one
-    comparison and one host read decide whether to go on.
+    The relaxations run CHECK_EVERY a launch of ``relax_tiles`` (K5 on the
+    card), which also tests convergence on the device; the host reads the
+    flags of CHAIN launches at a time.
     """
     dev = resolve_device(device)
-    free_t = torch.as_tensor(free, device=dev).bool()
+    free_t = torch.as_tensor(free, device=dev).bool().contiguous()
     src = torch.as_tensor(np.asarray(sources), device=dev).long().reshape(-1, 2)
-    h, w = free_t.shape
-    b = src.shape[0]
-    f32 = torch.float32
-    inf = torch.tensor(INF, dtype=f32, device=dev)
-    free_f = torch.where(free_t, torch.zeros((), dtype=f32, device=dev),
-                         inf)[None]                       # (1, H, W)
-    costs = [torch.tensor(c, dtype=f32, device=dev) for _, _, c in _NEIGHBORS]
-
-    pad = torch.full((b, h + 2, w + 2), INF, dtype=f32, device=dev)
-    dist = pad[:, 1:h + 1, 1:w + 1]                       # a view
-    dist[torch.arange(b, device=dev), src[:, 0], src[:, 1]] = 0.0
-    dist += free_f                                        # sources in walls => INF
-    best = torch.empty((b, h, w), dtype=f32, device=dev)
-    cand = torch.empty_like(best)
-    before = torch.empty_like(best)
-    eps = torch.tensor(1e-6, dtype=f32, device=dev)
-
-    def relax():
-        # shifted[y, x] = dist[y - dy, x - dx], edges INF: a view of ``pad``
-        best.copy_(dist)
-        for (dy, dx, _), cost in zip(_NEIGHBORS, costs):
-            torch.add(pad[:, 1 - dy:1 - dy + h, 1 - dx:1 - dx + w], cost,
-                      out=cand)
-            torch.minimum(best, cand, out=best)
-        best.add_(free_f)
-        torch.clamp_max(best, inf, out=dist)
-
-    it = 0
-    changed = True
-    while changed and it < h * w + 64:
-        before.copy_(dist)
-        for _ in range(CHECK_EVERY):
-            relax()
-        it += CHECK_EVERY
-        changed = bool(torch.any(dist < before - eps))
-    out = dist.contiguous()
+    out, it = _relax_until_converged(free_t, src, relax_tiles)
     return (out, it) if return_relaxations else out
 
 

@@ -30,12 +30,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # into one FMA would round differently from the plain PyTorch versions and
 # can move a tile across the cull margin. Where a fused multiply-add is
 # wanted (K3's gradient arithmetic) the source writes __fmaf_rn.
-# No --use_fast_math: 1/x and expf stay IEEE.
+# No --use_fast_math: 1/x, sqrtf and expf stay IEEE (K5's fields and K6's
+# clearances are the plain versions' bit for bit).
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
 # name -> (source file, C entry points with their ctypes argument types)
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 KERNELS = {
     "emit": ("emit.cu", {
         # table, offsets, n, n_live, tiles_x, mult, keys, gauss, counter,
@@ -69,6 +71,17 @@ KERNELS = {
         # ids, perm (or NULL), rows, out, n_rows, n_src_rows, row_stride,
         # n_payload, n_out, stream
         "sage3d_segment_reduce": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _P],
+    }),
+    "wavefront": ("wavefront.cu", {
+        # src, dst, free, b, h, w, prev_flag (or NULL), flag, stream
+        "sage3d_wavefront_relax": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    }),
+    "capsule": ("capsule.cu", {
+        # p0, p1, radius, b, means, quats, log_scales, opac, n, chunk,
+        # aabb_min (or NULL), aabb_max, max_scale, margin, opacity_thresh,
+        # sigma_cut, state, clear, idx, hits, visited, stream
+        "sage3d_capsule_query": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
+                                 _P, _P, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     }),
 }
 

@@ -13,14 +13,19 @@ point of the capsule axis, thresholded at ``sigma_cut`` (default 2): a Gaussian
 counts as solid out to 2 sigma if its opacity exceeds ``opacity_thresh``.
 
 The math is the JAX package's; its channel-planar (B, chunk) layout, a TPU
-lane workaround, is not ported. Both queries walk the scene in passes of at
-most QUERY_PAIRS capsule-Gaussian pairs (B=1 takes a 1M scene in one pass),
-under ``torch.no_grad``, so memory stays bounded whatever B and the scene's
-size; each pass is some 130-190 elementwise launches. The clearance is then
-recomputed with autograd for the one Gaussian each query picked, so
-``clearance`` is differentiable w.r.t. ``p0`` and ``p1`` without keeping any
-pass's intermediates (an exact tie for the minimum sends the whole gradient
-to the first Gaussian, where ``jnp.min`` splits it).
+lane workaround, is not ported. On the card both queries are one launch of
+kernel K6 (``csrc/capsule.cu``, wrapper ``capsule_best``): per query the
+least clearance, its first Gaussian and the contact count, with no
+(B, N) temporaries and, for the pruned query, no host sync. Its plain twin
+``capsule_best_plain`` (the CPU's path) walks the scene in passes of at most
+QUERY_PAIRS capsule-Gaussian pairs, so memory stays bounded whatever B and
+the scene's size. Both reduce the same packed key (``pack_key``: the
+clearance's order-preserving bits above the Gaussian index), so the least
+clearance and its first index come out of one integer minimum. The
+clearance is then recomputed with autograd for the one Gaussian each query
+picked, so ``clearance`` is differentiable w.r.t. ``p0`` and ``p1`` without
+keeping any pass's intermediates (an exact tie for the minimum sends the
+whole gradient to the first Gaussian, where ``jnp.min`` splits it).
 
 Entry points take ``device=None``, which means the card; they raise when the
 scene's tensors lie elsewhere, and never fall back to the CPU.
@@ -33,13 +38,15 @@ from typing import Dict, NamedTuple
 import torch
 
 from ..renderer.scene import GaussianScene, resolve_device
-from .projection import _rotmat_channels
+from . import _build
 
 DEFAULT_OPACITY_THRESH = 0.5
 DEFAULT_SIGMA_CUT = 2.0
 BIG = 1e9   # the clearance of "no solid Gaussian"
-QUERY_PAIRS = 1 << 24   # capsule-Gaussian pairs a pass: each of the ~20
-                        # (B, pass) float32 temporaries takes at most 64 MiB
+QUERY_PAIRS = 1 << 24   # capsule-Gaussian pairs a pass of the plain twin:
+                        # each of its ~20 (B, pass) float32 temporaries takes
+                        # at most 64 MiB
+NONE = (1 << 63) - 1    # the packed key of "no solid Gaussian"
 
 
 def _check_device(t: torch.Tensor, device, what: str) -> torch.device:
@@ -54,18 +61,35 @@ def _queries(p0, p1, radius, dev):
     def f32(v):
         return torch.as_tensor(v, dtype=torch.float32, device=dev)
     p0, p1 = f32(p0), f32(p1)
+    if isinstance(radius, (int, float)):    # a fill: no copy to the card
+        return p0, p1, torch.full(p0.shape[:1], float(radius),
+                                  dtype=torch.float32, device=dev)
     return p0, p1, f32(radius).expand(p0.shape[:1])
+
+
+def _rotmat_channels(quats: torch.Tensor):
+    """Normalized-quaternion rotation matrix as 9 separate (...,) channels:
+    ``projection._rotmat_channels`` with the norm written out as
+    sqrt(((w^2 + x^2) + y^2) + z^2), since torch's norm reduction adds in
+    an order of its own on each device and K6 rounds as this does."""
+    w, x, y, z = quats.unbind(-1)
+    den = torch.sqrt(w * w + x * x + y * y + z * z) + 1e-12
+    w, x, y, z = w / den, x / den, y / den, z / den
+    return ((1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
+            (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
+            (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)))
 
 
 def _clearance(p0, p1, radius, means, quats, log_scales, opac,
                opacity_thresh, sigma_cut):
     """(clear, contact) of B capsules against Gaussian columns that carry a
     leading broadcast axis: (1, C, ...) for every pair, giving (B, C), or
-    (B, 1, ...) for one Gaussian per query, giving (B, 1)."""
+    (B, 1, ...) for one Gaussian per query, giving (B, 1). Every operation
+    is one f32 rounding in this order; K6 repeats them."""
     d = p1 - p0                                              # (B, 3)
-    dd = torch.sum(d * d, dim=-1)
-    inv_dd = (1.0 / torch.where(dd > 1e-12, dd, torch.ones_like(dd)))[:, None]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    dd = (dx * dx + dy * dy + dz * dz)[:, 0]
+    inv_dd = (1.0 / torch.where(dd > 1e-12, dd, torch.ones_like(dd)))[:, None]
     # Closest point of each capsule axis to each Gaussian center:
     # t* = clamp((mu - p0) . d / |d|^2, 0, 1).
     rx = means[..., 0] - p0[:, 0:1]
@@ -105,13 +129,144 @@ def _columns(scene: GaussianScene, rows=None):
     return cols[:3] + (torch.sigmoid(cols[3]),)
 
 
-def _best(q, cols, opacity_thresh, sigma_cut):
-    """Per query: the least clearance over the Gaussian columns ``cols``,
-    the index of its first occurrence, and the contact count."""
+def pack_key(clear: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose order is that of (clearance, index): the f32
+    clearance's bits made order-preserving as a signed int32 (-0.0 taken as
+    +0.0, the magnitude bits of negatives flipped) above the index
+    (0 <= idx < 2^32). The least key is the least clearance and, on a tie,
+    the smallest index: ``jnp.argmin``'s first occurrence. K6 packs the same
+    order into unsigned words."""
+    c = torch.where(clear == 0, torch.zeros_like(clear), clear)
+    bits = c.contiguous().view(torch.int32)
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    return (key << 32) | idx
+
+
+def unpack_key(word: torch.Tensor):
+    """(clearance f32, index int64) of ``pack_key`` keys; NONE gives
+    (BIG, -1)."""
+    none = word == NONE
+    key = (word >> 32).to(torch.int32)
+    bits = torch.where(key >= 0, key, key ^ 0x7FFFFFFF)
+    return (torch.where(none, BIG, bits.view(torch.float32)),
+            torch.where(none, -1, word & 0xFFFFFFFF))
+
+
+def _pass_best(q, cols, rows, opacity_thresh, sigma_cut):
+    """Per query, the least key over the Gaussian columns ``cols`` (scene
+    rows ``rows``), NONE where no clearance is below BIG, and the contact
+    count."""
     clear, contact = _clearance(*q, *(c[None] for c in cols),
                                 opacity_thresh, sigma_cut)
-    c_min, c_arg = torch.min(clear, dim=1)   # first minimum, as jnp.argmin
-    return c_min, c_arg, torch.sum(contact, dim=1, dtype=torch.int32)
+    words = torch.where(clear < BIG, pack_key(clear, rows[None]), NONE)
+    return (torch.amin(words, dim=1),
+            torch.sum(contact, dim=1, dtype=torch.int32))
+
+
+def capsule_best_plain(q, cols, opacity_thresh=DEFAULT_OPACITY_THRESH,
+                       sigma_cut=DEFAULT_SIGMA_CUT, pass_size=None,
+                       prune=None):
+    """Plain version of K6 (``capsule_best``): the same outputs, from passes
+    of at most ``pass_size`` Gaussians (None: QUERY_PAIRS // B, at least the
+    JAX package's chunk of 65536), or with ``prune`` of whole visited
+    chunks, as many a pass as QUERY_PAIRS allows, found with one host sync
+    (``nonzero``). Each pass's least key folds into the running one, so
+    over passes in scene order the first minimum wins."""
+    p0 = q[0]
+    dev, b, n = p0.device, p0.shape[0], cols[0].shape[0]
+    best = torch.full((b,), NONE, dtype=torch.int64, device=dev)
+    hits = torch.zeros((b,), dtype=torch.int32, device=dev)
+    if prune is None:
+        visited = torch.zeros((), dtype=torch.int32, device=dev)
+        step = pass_size or max(65536, QUERY_PAIRS // max(b, 1))
+        passes = [torch.arange(c0, min(c0 + step, n), device=dev)
+                  for c0 in range(0, n, step)]
+    else:
+        aabb_min, aabb_max, max_scale, margin = prune
+        chunk = n // aabb_min.shape[0]
+        gap = _segment_aabb_gap(*q, aabb_min, aabb_max)
+        reach = sigma_cut * max_scale + margin                 # (n_chunks,)
+        visit = torch.any(gap <= reach[None, :], dim=0)        # (n_chunks,)
+        visited = torch.sum(visit, dtype=torch.int32)
+        chunks = torch.nonzero(visit)[:, 0]
+        per_pass = max(1, QUERY_PAIRS // max(b * chunk, 1))
+        lanes = torch.arange(chunk, device=dev)
+        passes = [(chunks[c0:c0 + per_pass, None] * chunk
+                   + lanes[None, :]).reshape(-1)
+                  for c0 in range(0, chunks.numel(), per_pass)]
+    for rows in passes:
+        words, h = _pass_best(q, [c[rows] for c in cols], rows,
+                              opacity_thresh, sigma_cut)
+        best = torch.minimum(best, words)
+        hits = hits + h
+    return (*unpack_key(best), hits, visited)
+
+
+def capsule_best(q, cols, opacity_thresh=DEFAULT_OPACITY_THRESH,
+                 sigma_cut=DEFAULT_SIGMA_CUT, pass_size=None, prune=None):
+    """K6: per query, the least clearance over the solid Gaussians, the
+    first index that reaches it and the contact count.
+
+    ``q`` is (p0, p1, radius): (B, 3), (B, 3), (B,) float32; ``cols`` the
+    Gaussians' (means (N, 3), quats (N, 4), log-scales (N, 3), opacities
+    (N,)) float32. ``prune`` is None for the dense query, or the accel's
+    (aabb_min, aabb_max, max_scale, prune_margin), its N Gaussians in
+    n_chunks whole chunks: then only the chunks some capsule can reach are
+    walked. Returns (clearance (B,) float32, BIG where no solid Gaussian;
+    index (B,) int64, -1 for none; contacts (B,) int32; chunks visited, a
+    0-dim int32, 0 when dense).
+
+    A CPU tensor takes the plain version (``pass_size`` sizes its passes);
+    a CUDA tensor launches ``csrc/capsule.cu``: one launch after a
+    zero-fill, no host sync, O(B) scratch."""
+    p0, p1, radius = q
+    means, quats, log_scales, opac = cols
+    b, n = p0.shape[0], means.shape[0]
+    want = [(p0, (b, 3)), (p1, (b, 3)), (radius, (b,)), (means, (n, 3)),
+            (quats, (n, 4)), (log_scales, (n, 3)), (opac, (n,))]
+    if prune is not None:
+        n_chunks = prune[0].shape[0]
+        want += [(prune[0], (n_chunks, 3)), (prune[1], (n_chunks, 3)),
+                 (prune[2], (n_chunks,))]
+        if n_chunks == 0 or n % n_chunks:
+            raise ValueError("capsule_best: the accel's Gaussians must fill "
+                             "its chunks")
+    for t, shape in want:
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"capsule_best: expected {shape} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    dev = means.device
+    if any(t.device != dev for t, _ in want):
+        raise ValueError("capsule_best: inputs on different devices")
+    if dev.type == "cpu":
+        return capsule_best_plain(q, cols, opacity_thresh, sigma_cut,
+                                  pass_size, prune)
+    if dev.type != "cuda":
+        raise ValueError(f"capsule_best: unsupported device {dev}")
+    if n >= 2**31:
+        raise ValueError("capsule_best: at most 2^31 - 1 Gaussians")
+    ptr = [t.contiguous() for t, _ in want]
+    state = torch.zeros((2 * b + 1,), dtype=torch.int64, device=dev)
+    clear = torch.empty((b,), dtype=torch.float32, device=dev)
+    idx = torch.empty((b,), dtype=torch.int64, device=dev)
+    hits = torch.empty((b,), dtype=torch.int32, device=dev)
+    visited = torch.empty((), dtype=torch.int32, device=dev)
+    bounds = ((None, None, None, 0.0) if prune is None else
+              (*(t.data_ptr() for t in ptr[7:]), float(prune[3])))
+    err = _build.launch(
+        _build.load("capsule").sage3d_capsule_query, dev,
+        *(t.data_ptr() for t in ptr[:3]), b,
+        *(t.data_ptr() for t in ptr[3:7]), n,
+        n if prune is None else n // prune[0].shape[0], *bounds,
+        float(opacity_thresh), float(sigma_cut), state.data_ptr(),
+        clear.data_ptr(), idx.data_ptr(), hits.data_ptr(),
+        visited.data_ptr())
+    _build.check(err, "capsule_best")
+    capsule_best.launches += 1
+    return clear, idx, hits, visited
+
+
+capsule_best.launches = 0
 
 
 def _result(scene, best_clear, best_idx, hits, q, opacity_thresh, sigma_cut,
@@ -142,24 +297,6 @@ def _result(scene, best_clear, best_idx, hits, q, opacity_thresh, sigma_cut,
     }
 
 
-def _init(b, dev):
-    return (torch.full((b,), BIG, dtype=torch.float32, device=dev),
-            torch.full((b,), -1, dtype=torch.int64, device=dev),
-            torch.zeros((b,), dtype=torch.int32, device=dev))
-
-
-def _merge(best, c_best, rows):
-    """Fold one pass's (min, first argmin, contacts) into the running
-    ``best``; ``rows`` maps the pass's columns to scene rows. A later pass
-    replaces only a strictly smaller minimum, so over passes in scene order
-    the first minimum wins, as ``jnp.argmin`` over the whole scene."""
-    best_clear, best_idx, hits = best
-    c_min, c_arg, c_hits = c_best
-    better = c_min < best_clear
-    return (torch.where(better, c_min, best_clear),
-            torch.where(better, rows(c_arg), best_idx), hits + c_hits)
-
-
 def capsule_query(
     scene: GaussianScene,
     p0,
@@ -170,8 +307,9 @@ def capsule_query(
     chunk: int = None,
     device=None,
 ) -> Dict[str, torch.Tensor]:
-    """Query B capsules against all Gaussians, ``chunk`` at a time (None:
-    QUERY_PAIRS // B, at least the JAX package's 65536).
+    """Query B capsules against all Gaussians: K6 on the card; on the CPU
+    its plain twin, ``chunk`` Gaussians a pass (None: QUERY_PAIRS // B, at
+    least the JAX package's 65536).
 
     Args:
       p0, p1: (B, 3) capsule segment endpoints (world frame).
@@ -187,16 +325,10 @@ def capsule_query(
     """
     dev = _check_device(scene.means, device, "the scene")
     q = _queries(p0, p1, radius, dev)
-    best = _init(q[0].shape[0], dev)
-    chunk = chunk or max(65536, QUERY_PAIRS // max(q[0].shape[0], 1))
     with torch.no_grad():
-        cols = _columns(scene)
-        qd = tuple(t.detach() for t in q)
-        for c0 in range(0, scene.num_gaussians, chunk):
-            best = _merge(best, _best(qd, [c[c0:c0 + chunk] for c in cols],
-                                      opacity_thresh, sigma_cut),
-                          lambda arg: arg + c0)
-    return _result(scene, *best, q, opacity_thresh, sigma_cut)
+        best = capsule_best(tuple(t.detach() for t in q), _columns(scene),
+                            opacity_thresh, sigma_cut, pass_size=chunk)
+    return _result(scene, *best[:3], q, opacity_thresh, sigma_cut)
 
 
 class CollisionAccel(NamedTuple):
@@ -317,35 +449,23 @@ def capsule_query_pruned(
     margin, a bound on the ellipsoid support). ``chunks_visited`` counts the
     chunks some query reaches.
 
-    The visited chunks are found with one host sync (``nonzero``) and swept
-    in chunk order, as many a pass as QUERY_PAIRS allows (all 123 chunks of
-    8192 of a 1M scene at B up to 16), so the first minimum is the JAX
-    package's (whose scan skips the other chunks one by one).
+    On the card this is one launch of K6, which tests each chunk itself and
+    returns at once from those no capsule reaches: no host sync. The plain
+    twin finds the visited chunks with one ``nonzero`` and sweeps them in
+    chunk order, so the first minimum is the JAX package's (whose scan
+    skips the other chunks one by one).
     """
     scene = accel.scene
     dev = _check_device(scene.means, device, "the collision accel")
     q = _queries(p0, p1, radius, dev)
-    b = q[0].shape[0]
-    best = _init(b, dev)
-    n_chunks = accel.aabb_min.shape[0]
-    chunk = scene.num_gaussians // n_chunks
-    per_pass = max(1, QUERY_PAIRS // max(b * chunk, 1))
     with torch.no_grad():
-        qd = tuple(t.detach() for t in q)
-        gap = _segment_aabb_gap(*qd, accel.aabb_min, accel.aabb_max)
-        reach = sigma_cut * accel.max_scale + prune_margin     # (n_chunks,)
-        visit = torch.any(gap <= reach[None, :], dim=0)        # (n_chunks,)
-        chunks = torch.nonzero(visit)[:, 0]
-        lanes = torch.arange(chunk, device=dev)
-        for c0 in range(0, chunks.numel(), per_pass):
-            rows = (chunks[c0:c0 + per_pass, None] * chunk
-                    + lanes[None, :]).reshape(-1)
-            best = _merge(best, _best(qd, _columns(scene, rows),
-                                      opacity_thresh, sigma_cut),
-                          lambda arg: rows[arg])
-    out = _result(scene, *best, q, opacity_thresh, sigma_cut,
+        clear, idx, hits, visited = capsule_best(
+            tuple(t.detach() for t in q), _columns(scene), opacity_thresh,
+            sigma_cut, prune=(accel.aabb_min, accel.aabb_max,
+                              accel.max_scale, prune_margin))
+    out = _result(scene, clear, idx, hits, q, opacity_thresh, sigma_cut,
                   margin=prune_margin)
-    out["chunks_visited"] = torch.sum(visit, dtype=torch.int32)
+    out["chunks_visited"] = visited
     return out
 
 

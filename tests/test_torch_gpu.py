@@ -376,6 +376,61 @@ def test_wavefront_on_the_card_equals_cpu():
         plan_many(g == 0, pairs[:, 0], pairs[:, 1], device="cpu")
 
 
+def test_wavefront_kernel_is_bitwise_its_plain_twin():
+    """K5 (``relax_tiles``) against ``relax_tiles_plain`` on the card, one
+    launch at a time from the start to convergence, on a grid whose sides are
+    not multiples of the tile: fields and flags equal bitwise; then the whole
+    loop, with the relaxation count."""
+    from sage3d_tpu_torch.data import astar
+    _need_card("K5")
+    rng = np.random.default_rng(4)
+    free = torch.from_numpy(rng.uniform(size=(75, 131)) > 0.15).cuda()
+    ys, xs = torch.nonzero(free, as_tuple=True)
+    pick = torch.from_numpy(rng.integers(0, len(ys), 17)).cuda()
+    src = torch.stack([ys[pick], xs[pick]], 1)
+    field = {}
+    for name, relax in (("kernel", astar.relax_tiles),
+                        ("plain", astar.relax_tiles_plain)):
+        field[name] = astar._relax_until_converged(free, src, relax)
+    assert field["kernel"][1] == field["plain"][1]
+    assert torch.equal(field["kernel"][0], field["plain"][0])
+    cur = torch.full((17, 75, 131), astar.INF, device="cuda")
+    cur[torch.arange(17), src[:, 0], src[:, 1]] = 0.0
+    flags = torch.zeros((2, 2), dtype=torch.int32, device="cuda")
+    for _ in range(field["kernel"][1] // astar.CHECK_EVERY):
+        outs = [torch.empty_like(cur), torch.empty_like(cur)]
+        astar.relax_tiles(cur, outs[0], free, None, flags[0, 0])
+        astar.relax_tiles_plain(cur, outs[1], free, None, flags[1, 0])
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        assert torch.equal(flags[0], flags[1])
+        flags.zero_()
+        cur = outs[0]
+
+
+def test_capsule_kernel_matches_its_plain_twin():
+    """K6 (``capsule_best``) against ``capsule_best_plain`` on the card,
+    dense and pruned, B = 1, 4, 64: indices and contact counts equal, the
+    clearance within 1e-5 (the same f32 operations: 0 expected)."""
+    from sage3d_tpu_torch.ops import collision
+    _need_card("K6")
+    scene = synthetic_room(50_000, seed=3, device="cuda")
+    accel = collision.build_collision_accel(scene, chunk=2048)
+    xy = np.random.default_rng(1).uniform(-4.5, 4.5, (64, 2))
+    for b in (1, 4, 64):
+        q = collision._queries(*collision.agent_capsule(xy[:b]),
+                               torch.device("cuda"))
+        for cols, prune in (
+                (collision._columns(scene), None),
+                (collision._columns(accel.scene),
+                 (accel.aabb_min, accel.aabb_max, accel.max_scale, 2.0))):
+            got = collision.capsule_best(q, cols, prune=prune)
+            want = collision.capsule_best_plain(q, cols, prune=prune)
+            for k in (1, 2, 3):
+                assert torch.equal(got[k], want[k]), (b, prune is None, k)
+            torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+
+
 def test_waypoint_images_on_the_card_match_cpu(tmp_path):
     """One batch of waypoint frames through ``generate_scene_images``: the
     card's ``cuda`` backend (K1, K2) against the CPU's ``torch`` backend,
