@@ -86,12 +86,17 @@ no result line):
      pruned query must agree below the margin (hit, hit_count, nearest_id
      equal, clearance within ``NAV_CLEAR_TOL``), on the card and against the
      same port code on a CPU copy of the scene; the clearance's gradient
-     w.r.t. ``p0`` must be finite; K6 (``csrc/capsule.cu``) against its
-     plain twin on the card, dense and pruned at B = 1, 4 and 64: the
-     winning index, hit_count and chunks_visited equal, the clearance within
+     w.r.t. ``p0`` must be finite; K6's solid-test sigmoid bitwise
+     ``torch.sigmoid`` over the room's logits and a sweep across 0; K6
+     (``csrc/capsule.cu``) against its plain twin on the card, dense and
+     pruned at B = 1, 4, 64 and 257 (``K6_BS``; both schedules, two query
+     tiles), in the room and in its adversarial copy
+     (``tests/capsule_cases.py``): the winning index, hit_count,
+     chunks_visited, hit and nearest_id equal, the clearance within
      ``NAV_CLEAR_TOL``; per query through the entry points: ms (events),
-     back-to-back and host ms, device busy, one K6 launch, host syncs (the
-     pruned query none), peak memory; K6 alone at the rollout's B = 1;
+     back-to-back and host ms, device busy, kernels and copies, one K6
+     launch, host syncs (the pruned query none), peak memory; K6 alone at
+     the rollout's B = 1 and at B = 64, each with its bound;
      9b, ``rollout`` for ``NAV_STEPS`` steps at 640x480 (the env's frame)
      over a 200x200 wall grid, budgets from ``autotune_poses`` over 16 poses
      (``pair_margin=1.5``), dense and pruned: overflow 0, K1, K2 and K6
@@ -245,15 +250,18 @@ FP32_NONFMA_OPS_PER_S = 33.5e12
 # K5, one cell of one relaxation: 8 neighbour adds and 8 minima, the
 # obstacle add and the clamp.
 K5_OPS_PER_CELL = 18
-# K6, a division or a sqrtf counted as one operation: every Gaussian, the
-# quaternion's norm and normalisation, the rotation's nine entries, three
-# exps and the solid test (60); every pair with a solid Gaussian, t and the
-# closest point, dist, the three rotated coordinates and their squares,
-# maha, support, the clearance, the contact test and the key test (60).
-# Non-solid Gaussians do no pair work. The scene's bytes: means, quats,
-# log-scales and the opacity, 44 a Gaussian.
-K6_OPS_PER_GAUSSIAN, K6_OPS_PER_PAIR = 60, 60
-K6_BYTES_PER_GAUSSIAN = 44
+# K6, a division, a sqrtf or an exp counted as one operation: every
+# Gaussian, the opacity's sigmoid and the solid test (5); every solid one,
+# the quaternion's norm and normalisation, the rotation's nine entries and
+# three exps (59: K6 returns after the solid test for the others); every
+# pair with a solid Gaussian, t and the closest point, dist, the three
+# rotated coordinates and their squares, maha, support, the clearance, the
+# contact test and the minimum's test (60). The scene's bytes: means,
+# quats, log-scales and the opacity logit, 44 a Gaussian; a query's: p0 and
+# p1 in, the clearance, index and contacts out (40).
+K6_OPS_PER_GAUSSIAN, K6_OPS_PER_SOLID, K6_OPS_PER_PAIR = 5, 59, 60
+K6_BYTES_PER_GAUSSIAN, K6_BYTES_PER_QUERY = 44, 40
+K6_BS = (1, 4, 64, 257)  # 9a: K6 against its twin and each query's cost
 
 # Phase 9, the navigation path on the 1M room.
 NAV_W, NAV_H = 640, 480  # the env's own frame (vln_env.py's defaults)
@@ -435,7 +443,8 @@ def device_busy(fn, reps: int = PROFILE_REPS, n_top: int = 6):
 
 
 def counting_syncs(fn):
-    """``fn()`` and the host syncs it made (torch.cuda.set_sync_debug_mode)."""
+    """``fn()`` and the host syncs it made (torch.cuda.set_sync_debug_mode;
+    its one-time notice that the mode is a prototype is not a sync)."""
     import warnings
     import torch
     with warnings.catch_warnings(record=True) as caught:
@@ -445,7 +454,8 @@ def counting_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("synchroniz" in str(w.message)
+                    and "prototype" not in str(w.message) for w in caught)
 
 
 def walked_pairs(pg, start, count, chunks):
@@ -482,6 +492,16 @@ def alpha_hits(attrs, pg, start, count, tiles_x, chunks) -> int:
                                         py)[2]
                 hits += ((alpha > 0) & (k < walk)[:, None, None]).sum()
     return int(hits)
+
+
+def k6_bound(n_g: int, n_solid: int, b: int):
+    """K6's least time in ms for B dense queries over ``n_g`` Gaussians of
+    which ``n_solid`` are solid (the non-FMA rate), and what sets it."""
+    t_b = (n_g * K6_BYTES_PER_GAUSSIAN + b * K6_BYTES_PER_QUERY + 4) \
+        / HBM_BYTES_PER_S
+    t_o = (n_g * K6_OPS_PER_GAUSSIAN + n_solid * K6_OPS_PER_SOLID
+           + b * n_solid * K6_OPS_PER_PAIR) / FP32_NONFMA_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
 def ops_bound(n_bytes, evals, per_eval, hits, per_hit):
@@ -661,6 +681,133 @@ def route_poses(episodes, spacing: float = 0.2) -> list:
     return poses
 
 
+def k6_phase(room, accel, xy, card: str, reset_peak) -> dict:
+    """Phase 9a's K6 part on the 1M room and its accel, with the grid
+    capsules ``xy``: the sigmoid gate, K6 against its plain twin, each
+    query's cost through the entry points, and K6 alone with its bounds.
+    Returns the ``kernels`` line's K6 numbers (launches aside)."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from capsule_cases import adversarial_room, capsules
+    from sage3d_tpu_torch.ops import collision
+    from sage3d_tpu_torch.ops.collision import (agent_capsule,
+                                                build_collision_accel,
+                                                capsule_query,
+                                                capsule_query_pruned)
+    dev = room.means.device
+    n_chunks = accel.aabb_min.shape[0]
+    # K6 against its plain twin on the card, on the inputs the queries give
+    # it, in the room and in its adversarial copy (tests/capsule_cases.py):
+    # the indices, contact counts, visited chunks and the assembled result
+    # equal, the clearances the same f32 operations (0 expected). B = 257
+    # adds draws inside the walls to the 64 grid capsules.
+    xy_all = np.concatenate([xy, np.random.default_rng(5).uniform(
+        -4.2, 4.2, (max(K6_BS) - len(xy), 2))])
+    p0, p1, r = agent_capsule(xy_all)
+    sig = torch.cat([room.opacity_logits,
+                     torch.linspace(-1e-5, 1e-5, 1 << 16, device=dev)])
+    same_sig = torch.equal(collision.capsule_sigmoid(sig).view(torch.int32),
+                           torch.sigmoid(sig).view(torch.int32))
+    print(f"9a K6's solid-test sigmoid vs torch.sigmoid on the card over "
+          f"{sig.numel()} logits (the room's and a sweep across 0): bitwise "
+          f"{same_sig}", flush=True)
+    check(same_sig, "9a: K6's sigmoid equals torch.sigmoid bitwise")
+    adv = adversarial_room(room)
+    adv_accel = build_collision_accel(adv, chunk=8192)
+    xy_adv = capsules(max(K6_BS))
+    k6 = {"max_abs_err": 0.0}
+    for label, sc, acc, pts in (("room", room, accel, (p0, p1)),
+                                ("adversarial room", adv, adv_accel,
+                                 agent_capsule(xy_adv)[:2])):
+        for b in K6_BS:
+            q = collision._queries(pts[0][:b], pts[1][:b], r, dev)
+            for name, sc_k, prune in (
+                    ("dense", sc, None),
+                    ("pruned", acc.scene, (acc.aabb_min, acc.aabb_max,
+                                           acc.max_scale, NAV_MARGIN))):
+                cols_k, ids = collision._columns(sc_k), sc_k.semantic_ids
+                got = collision.capsule_best(q, cols_k, prune=prune, ids=ids)
+                want = collision.capsule_best_plain(q, cols_k, prune=prune,
+                                                    ids=ids)
+                torch.cuda.synchronize()
+                err = max(float((got[k] - want[k]).abs().max())
+                          for k in (0, 6))
+                same = all(torch.equal(got[k], want[k])
+                           for k in (1, 2, 3, 4, 5))
+                k6["max_abs_err"] = max(k6["max_abs_err"], err)
+                print(f"9a K6 {label} {name} B={b} vs its plain twin on the "
+                      f"card: index, hit_count, chunks_visited, hit, "
+                      f"nearest_id equal {same}, max |clearance diff| "
+                      f"{err:.3e}", flush=True)
+                check(same and err <= NAV_CLEAR_TOL,
+                      f"9a K6 {label} {name} B={b}: index, hit_count, chunks "
+                      f"visited and the result equal to the plain twin's on "
+                      f"the card, clearance within {NAV_CLEAR_TOL}")
+    del adv, adv_accel
+    for b in K6_BS:
+        for name, fn in (
+                ("dense", lambda: capsule_query(room, p0[:b], p1[:b], r)),
+                ("pruned", lambda: capsule_query_pruned(
+                    accel, p0[:b], p1[:b], r, prune_margin=NAV_MARGIN))):
+            ms = cuda_ms(fn, reps=10, warmup=2)
+            b2b, host = back_to_back_ms(fn)
+            busy, n_ops, _ = device_busy(fn, reps=5)
+            _, k6_n = launches_of([collision.capsule_best], fn)
+            _, syncs = counting_syncs(fn)
+            held = reset_peak()
+            res = fn()
+            torch.cuda.synchronize()
+            q_peak = torch.cuda.max_memory_allocated() - held
+            visited = (f", chunks_visited {int(res['chunks_visited'])} of "
+                       f"{n_chunks}" if name == "pruned" else "")
+            del res
+            schedule = "many" if b > collision.FEW_MAX else "few"
+            print(f"9a capsule query {name} B={b} ({schedule}-query "
+                  f"schedule) {card}: {ms:.3f} ms a query "
+                  f"(CUDA events, median of 10), {b2b:.4f} ms back to back, "
+                  f"host {host:.4f} ms, device busy {busy:.4f} ms, "
+                  f"{n_ops:.0f} kernels and copies a query, K6 launches "
+                  f"{k6_n[0]}, host syncs {syncs}{visited}, peak "
+                  f"device memory {q_peak / 2**20:.1f} MiB above what was "
+                  f"held", flush=True)
+            check(k6_n[0] == 1, f"9a {name} B={b}: one K6 launch a query")
+            if name == "pruned":
+                check(syncs == 0, f"9a pruned B={b}: no host sync")
+
+    # K6 alone at the rollout's query (B = 1, dense) and at B = 64, for the
+    # kernels line.
+    cols_d = collision._columns(room)
+    n_g = room.num_gaussians
+    n_solid = int((torch.sigmoid(cols_d[3])
+                   >= collision.DEFAULT_OPACITY_THRESH).sum())
+    q1 = collision._queries(p0[:1], p1[:1], r, dev)
+    q64 = collision._queries(p0[:64], p1[:64], r, dev)
+    k6["ms"] = cuda_ms(lambda: collision.capsule_best(q1, cols_d), reps=20,
+                       warmup=3)
+    k6["back_to_back_ms"], k6["host_ms"] = back_to_back_ms(
+        lambda: collision.capsule_best(q1, cols_d))
+    k6["plain_ms"] = cuda_ms(lambda: collision.capsule_best_plain(
+        q1, cols_d), reps=5, warmup=1)
+    k6["bound_ms"], k6["bound_by"] = k6_bound(n_g, n_solid, 1)
+    k6["b64_back_to_back_ms"], b64_host = back_to_back_ms(
+        lambda: collision.capsule_best(q64, cols_d))
+    k6["b64_bound_ms"], b64_by = k6_bound(n_g, n_solid, 64)
+    print(f"K6 dense B=1 {card}: {k6['ms']:.4f} ms (events around one "
+          f"call), {k6['back_to_back_ms']:.4f} ms back to back, host "
+          f"{k6['host_ms']:.4f} ms; plain twin {k6['plain_ms']:.3f} ms; bound "
+          f"{k6['bound_ms']:.4f} ms ({k6['bound_by']}, {n_solid} solid of "
+          f"{n_g}), share {k6['bound_ms'] / k6['back_to_back_ms']:.3f}; "
+          f"B=64: {k6['b64_back_to_back_ms']:.4f} ms back to back, host "
+          f"{b64_host:.4f} ms, bound {k6['b64_bound_ms']:.4f} ms ({b64_by}), "
+          f"share {k6['b64_bound_ms'] / k6['b64_back_to_back_ms']:.3f}",
+          flush=True)
+
+    return k6
+
+
 def navigation(room, card: str) -> list:
     """Phase 9, the navigation path on the 1M room (see the module
     docstring). Returns K1's and K2's launches on its main-path runs, each
@@ -777,83 +924,7 @@ def navigation(room, card: str) -> list:
         capsule_query(room, leaf, p1, r)["clearance"].sum(), leaf)
     check(bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0,
           "9a: the clearance's gradient w.r.t. p0 is finite and non-zero")
-    # K6 against its plain twin on the card, on the inputs the queries give
-    # it: the indices, contact counts and visited chunks equal, the
-    # clearances the same f32 operations (0 expected). Then each query's
-    # cost through its entry point.
-    cols = {"dense": (collision._columns(room), None),
-            "pruned": (collision._columns(accel.scene),
-                       (accel.aabb_min, accel.aabb_max, accel.max_scale,
-                        NAV_MARGIN))}
-    k6 = {"max_abs_err": 0.0}
-    for b in (1, 4, 64):
-        q = collision._queries(p0[:b], p1[:b], r, dev)
-        for name, (cols_k, prune) in cols.items():
-            got = collision.capsule_best(q, cols_k, prune=prune)
-            want = collision.capsule_best_plain(q, cols_k, prune=prune)
-            torch.cuda.synchronize()
-            err = float((got[0] - want[0]).abs().max())
-            same = all(torch.equal(got[k], want[k]) for k in (1, 2, 3))
-            k6["max_abs_err"] = max(k6["max_abs_err"], err)
-            print(f"9a K6 {name} B={b} vs its plain twin on the card: "
-                  f"index, hit_count, chunks_visited equal {same}, max "
-                  f"|clearance diff| {err:.3e}", flush=True)
-            check(same and err <= NAV_CLEAR_TOL,
-                  f"9a K6 {name} B={b}: index, hit_count and chunks visited "
-                  f"equal to the plain twin's on the card, clearance within "
-                  f"{NAV_CLEAR_TOL}")
-    for b in (1, 4, 64):
-        for name, fn in (
-                ("dense", lambda: capsule_query(room, p0[:b], p1[:b], r)),
-                ("pruned", lambda: capsule_query_pruned(
-                    accel, p0[:b], p1[:b], r, prune_margin=NAV_MARGIN))):
-            ms = cuda_ms(fn, reps=10, warmup=2)
-            b2b, host = back_to_back_ms(fn)
-            busy, n_ops, _ = device_busy(fn, reps=5)
-            _, k6_n = launches_of([collision.capsule_best], fn)
-            _, syncs = counting_syncs(fn)
-            held = reset_peak()
-            res = fn()
-            torch.cuda.synchronize()
-            q_peak = torch.cuda.max_memory_allocated() - held
-            visited = (f", chunks_visited {int(res['chunks_visited'])} of "
-                       f"{n_chunks}" if name == "pruned" else "")
-            del res
-            print(f"9a capsule query {name} B={b} {card}: {ms:.3f} ms a query "
-                  f"(CUDA events, median of 10), {b2b:.4f} ms back to back, "
-                  f"host {host:.4f} ms, device busy {busy:.4f} ms, "
-                  f"{n_ops:.0f} kernels and copies a query, K6 launches "
-                  f"{k6_n[0]}, host syncs {syncs}{visited}, peak "
-                  f"device memory {q_peak / 2**20:.1f} MiB above what was "
-                  f"held", flush=True)
-            check(k6_n[0] == 1, f"9a {name} B={b}: one K6 launch a query")
-            if name == "pruned":
-                check(syncs == 0, f"9a pruned B={b}: no host sync")
-
-    # K6 alone at the rollout's query (B = 1, dense), for the kernels line.
-    q1 = collision._queries(p0[:1], p1[:1], r, dev)
-    cols_d = cols["dense"][0]
-    k6["ms"] = cuda_ms(lambda: collision.capsule_best(q1, cols_d), reps=20,
-                       warmup=3)
-    k6["back_to_back_ms"], k6["host_ms"] = back_to_back_ms(
-        lambda: collision.capsule_best(q1, cols_d))
-    k6["plain_ms"] = cuda_ms(lambda: collision.capsule_best_plain(
-        q1, cols_d), reps=5, warmup=1)
-    n_g = room.num_gaussians
-    n_solid = int((cols_d[3] >= collision.DEFAULT_OPACITY_THRESH).sum())
-    k6_bytes = n_g * K6_BYTES_PER_GAUSSIAN + 7 * 4 + 16
-    k6_ops = n_g * K6_OPS_PER_GAUSSIAN + n_solid * K6_OPS_PER_PAIR
-    t_b, t_o = k6_bytes / HBM_BYTES_PER_S, k6_ops / FP32_NONFMA_OPS_PER_S
-    k6["bound_ms"] = max(t_b, t_o) * 1e3
-    k6["bound_by"] = "bytes" if t_b >= t_o else "operations"
-    b64 = (n_g * K6_OPS_PER_GAUSSIAN + 64 * n_solid * K6_OPS_PER_PAIR) \
-        / FP32_NONFMA_OPS_PER_S * 1e3
-    print(f"K6 dense B=1 {card}: {k6['ms']:.4f} ms (events around one "
-          f"call), {k6['back_to_back_ms']:.4f} ms back to back, host "
-          f"{k6['host_ms']:.4f} ms; plain twin {k6['plain_ms']:.3f} ms; bound "
-          f"{k6['bound_ms']:.4f} ms ({k6['bound_by']}: {k6_bytes / 1e6:.1f} "
-          f"MB, {k6_ops:.4e} operations, {n_solid} solid of {n_g}); the "
-          f"operations bound at B=64 {b64:.4f} ms", flush=True)
+    k6 = k6_phase(room, accel, xy, card, reset_peak)
 
     # 9b. rollouts -----------------------------------------------------------
     mask = np.zeros((200, 200), np.uint8)
@@ -3473,7 +3544,8 @@ def main() -> int:
          "ms": k6["ms"], "back_to_back_ms": k6["back_to_back_ms"],
          "host_ms": k6["host_ms"], "plain_ms": k6["plain_ms"],
          "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
-         "library_ms": None},
+         "b64_back_to_back_ms": k6["b64_back_to_back_ms"],
+         "b64_bound_ms": k6["b64_bound_ms"], "library_ms": None},
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel of the path launched on the main path")

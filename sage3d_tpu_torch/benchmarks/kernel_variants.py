@@ -1,15 +1,20 @@
 """Design variants of K1 (``csrc/emit.cu``), K2 (``csrc/composite_fwd.cu``),
-K3 (``csrc/composite_bwd.cu``) and K4 (``csrc/segreduce.cu``), timed against
-the kernels as built, on the inputs the render and its backward give them at
-the 1920x1080 frame of the 1M-Gaussian room (``chip_smoke.py``'s frame a).
-Card only:
+K3 (``csrc/composite_bwd.cu``), K4 (``csrc/segreduce.cu``) and K6
+(``csrc/capsule.cu``), timed against the kernels as built, on the inputs the
+render and its backward give them at the 1920x1080 frame of the 1M-Gaussian
+room (``chip_smoke.py``'s frame a), and for K6 on 64, 4 and 1 capsules
+against that room (the many- and few-query schedules). Card only:
 
-    python -m sage3d_tpu_torch.benchmarks.kernel_variants [K1 K2 K3 K4] [--tree PATH]
+    python -m sage3d_tpu_torch.benchmarks.kernel_variants [K1 K2 K3 K4 K6] [--tree PATH]
 
-(the kernels named, all four by default). ``--tree PATH`` adds the K2 of
+(the kernels named, all five by default). ``--tree PATH`` adds the K2 of
 another checkout (e.g. the parent commit unpacked with ``git archive``) as
 one more variant of K2: held bitwise to the K2 built here and timed beside
-it in the same call. Each other variant is the kernel's
+it in the same call. For K6 it imports that checkout's ``ops/collision.py``
+as a package of its own (``tree_collision``; its C interface may differ):
+its K6 at each B, held bitwise to the K6 built here, and the dense query
+at B = 1 and 64 and the pruned one at B = 1 through both checkouts' entry
+points, all timed in the same turns. Each other variant is the kernel's
 source with one or two of its constants edited (the edits are listed in
 ``VARIANTS``), built with the kernels' own ``nvcc`` flags (plus ``-Xptxas
 -v`` for the register count) into ``build/variants/``. Each must give the
@@ -30,9 +35,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from ..ops import _build, binning, composite_cuda as cc, segreduce
+from ..ops import _build, binning, collision, composite_cuda as cc, segreduce
 from ..ops.projection import project_gaussians
 from ..renderer.camera import make_camera
 from ..renderer.render import autotune_all, budget_kwargs
@@ -53,6 +59,10 @@ _K2_SKIP = "constexpr bool kSkipMisses = false;"
 _K4_THREADS = "constexpr int kThreads = 64;"
 _K4_UNROLL = "constexpr int kUnroll = 2;"
 _K3_BOUNDS = "__launch_bounds__(kThreads, 4)"
+_K6_WAVES = "constexpr int kManyWaves = 4;"
+_K6_FEW = "constexpr int kFewMax = 4;"
+_K6_BOUNDS = "__launch_bounds__(kThreads)\ncapsule_many("
+_K6_LOOP = "        for (int j = my_lane; j < total; j += n_lanes) {"
 VARIANTS = {
     "K1 as built (128 threads a block, 8 slots a thread, block window search)":
         ("emit", {}, ()),
@@ -85,6 +95,16 @@ VARIANTS = {
     "K4, 256 threads a block, 4 rows in flight":
         ("segreduce", {_K4_THREADS: "constexpr int kThreads = 256;",
                        _K4_UNROLL: "constexpr int kUnroll = 4;"}, ()),
+    "K6 as built (many queries: 4 waves of blocks)": ("capsule", {}, ()),
+    "K6, the many-query schedule at every B":
+        ("capsule", {_K6_FEW: "constexpr int kFewMax = 0;"}, ()),
+    "K6, 1 wave": ("capsule", {_K6_WAVES: "constexpr int kManyWaves = 1;"}, ()),
+    "K6, 2 waves": ("capsule", {_K6_WAVES: "constexpr int kManyWaves = 2;"}, ()),
+    "K6, pair loop unrolled by 2":
+        ("capsule", {_K6_LOOP: "#pragma unroll 2\n" + _K6_LOOP}, ()),
+    "K6, __launch_bounds__(256, 3)":
+        ("capsule", {_K6_BOUNDS: "__launch_bounds__(kThreads, 3)\ncapsule_many("},
+         ()),
     "K3 as built (__launch_bounds__(128, 4))": ("composite_bwd", {}, ()),
     "K3, __launch_bounds__(128, 3)":
         ("composite_bwd", {_K3_BOUNDS: "__launch_bounds__(kThreads, 3)"}, ()),
@@ -259,18 +279,89 @@ def _k4_call(lib, k4_args):
     return out
 
 
+K6_BS = (64, 4, 1)      # K6's query counts: both schedules
+
+
+def capsule_inputs(dev):
+    """The 1M room and ``max(K6_BS)`` agent capsules at positions drawn
+    inside its walls (``np.random.default_rng(5)``): (room, p0, p1,
+    radius), the radius a number as the entry points take it."""
+    room = synthetic_room(1_000_000, seed=0, device=dev)
+    xy = np.random.default_rng(5).uniform(-4.2, 4.2, (max(K6_BS), 2))
+    return (room, *collision.agent_capsule(xy, device=dev))
+
+
+def tree_collision(tree):
+    """``ops/collision.py`` of the checkout ``tree``, imported as a package
+    of its own (``sage3d_tree``) beside this one: its wrapper loads that
+    checkout's ``csrc/capsule.cu``, built into its own ``build/``, through
+    that checkout's C interface."""
+    import importlib
+    import importlib.util
+    pkg = Path(tree).resolve() / "sage3d_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "sage3d_tree", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["sage3d_tree"] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module("sage3d_tree.ops.collision")
+
+
+def tree_k6_calls(tree, room, p0, p1, r) -> dict:
+    """The calls that set K6 of the checkout ``tree`` beside the one built
+    here, by label: its K6 alone at each B of ``K6_BS`` through its own
+    wrapper and columns (an earlier tree may read other columns), and the
+    dense query at B = 1 and 64 and the pruned one at B = 1 (chunks of 8192,
+    margin 2) through each tree's entry points. Each value is (the call,
+    the key in ``measure``'s ``want`` that it must equal bit for bit, or
+    None)."""
+    other = tree_collision(tree)
+    dev = room.means.device
+    calls = {}
+    cols = other._columns(room)
+    for b in K6_BS:
+        q = other._queries(p0[:b], p1[:b], r, dev)
+        calls[f"K6 of {tree} [B={b}]"] = (
+            lambda q=q: tuple(other.capsule_best(q, cols)[:4]),
+            f"capsule B={b}")
+    for label, mod in (("built", collision), (str(tree), other)):
+        accel = mod.build_collision_accel(room, chunk=8192, device=dev)
+        for name, fn in (
+                ("dense query B=1", lambda mod=mod: mod.capsule_query(
+                    room, p0[:1], p1[:1], r, device=dev)),
+                ("dense query B=64", lambda mod=mod: mod.capsule_query(
+                    room, p0[:64], p1[:64], r, device=dev)),
+                ("pruned query B=1", lambda mod=mod, accel=accel:
+                    mod.capsule_query_pruned(accel, p0[:1], p1[:1], r,
+                                             prune_margin=2.0, device=dev))):
+            calls[f"{name} of {label}"] = (fn, None)
+    return calls
+
+
+def _k6_call(lib, k6_args):
+    """K6's (clear, idx, hits, visited) through its wrapper, ``lib`` loaded
+    as the kernel for the call."""
+    built = _build.load("capsule")
+    _build._LIBS["capsule"] = lib
+    try:
+        return tuple(collision.capsule_best(*k6_args)[:4])
+    finally:
+        _build._LIBS["capsule"] = built
+
+
 KERNEL_OF = {"K1": "emit", "K2": "composite_fwd", "K3": "composite_bwd",
-             "K4": "segreduce"}
+             "K4": "segreduce", "K6": "capsule"}
 
 
 def measure(dev, kernels=tuple(KERNEL_OF), tree=None) -> dict:
     """Build, check and time the variants of the kernels named (``K1`` ..
-    ``K4``), and with ``tree`` the K2 of that checkout."""
+    ``K4``, ``K6``), and with ``tree`` the K2 and K6 of that checkout."""
     wanted = {KERNEL_OF[k] for k in kernels}
     variants = {name: (kernel, edits, flags, None)
                 for name, (kernel, edits, flags) in VARIANTS.items()
                 if kernel in wanted}
-    if tree is not None:
+    if tree is not None and "composite_fwd" in wanted:
         variants[f"K2 of {tree}"] = (
             "composite_fwd", {}, (), Path(tree) / "sage3d_tpu_torch" / "csrc")
     jobs = {name: (kernel, _start_build(name, kernel, edits, flags, csrc))
@@ -278,31 +369,50 @@ def measure(dev, kernels=tuple(KERNEL_OF), tree=None) -> dict:
     built = {name: (kernel, *_finish_build(name, kernel, job))
              for name, (kernel, job) in jobs.items()}
     log(f"built {len(built)} variants")
-    args = frame_a_inputs(dev)
-    ids, rows, n_out, perm = args["segreduce"]
+    args = frame_a_inputs(dev) if wanted - {"capsule"} else {}
+    if "capsule" in wanted:
+        k6_in = capsule_inputs(dev)
+        room, p0, p1, r = k6_in
+        for b in K6_BS:
+            args[f"capsule B={b}"] = (collision._queries(p0[:b], p1[:b], r,
+                                                         dev),
+                                      collision._columns(room))
     call_of = {"emit": lambda lib: _k1_call(lib, args["emit"]),
                "composite_fwd": lambda lib: _k2_call(lib, args["composite_fwd"]),
                "composite_bwd": lambda lib: _k3_call(lib, args["composite_bwd"]),
-               "segreduce": lambda lib: _k4_call(lib, args["segreduce"])}
+               "segreduce": lambda lib: _k4_call(lib, args["segreduce"]),
+               **{f"capsule B={b}": (lambda lib, b=b: _k6_call(
+                   lib, args[f"capsule B={b}"])) for b in K6_BS}}
     call_of["composite_fwd box"] = (
         lambda lib: _k2_call(lib, args["composite_fwd box"]))
     # What each kernel as built gives, in the form the variants are held to.
     check_of = {"emit": _sorted, "composite_fwd": tuple,
                 "composite_fwd box": tuple, "composite_bwd": lambda x: (x,),
-                "segreduce": lambda x: (x,)}
-    want = {"emit": binning.emit_tile_pairs(*args["emit"]),
-            "composite_fwd": cc.composite_fwd(*args["composite_fwd"]),
-            "composite_fwd box": cc.composite_fwd(*args["composite_fwd box"]),
-            "composite_bwd": cc.composite_bwd(*args["composite_bwd"]),
-            "segreduce": segreduce.segment_reduce_sorted(ids, rows, n_out,
-                                                         perm=perm)}
+                "segreduce": lambda x: (x,),
+                **{f"capsule B={b}": tuple for b in K6_BS}}
+    want = {}
+    if args.get("emit") is not None:
+        ids, rows, n_out, perm = args["segreduce"]
+        want = {"emit": binning.emit_tile_pairs(*args["emit"]),
+                "composite_fwd": cc.composite_fwd(*args["composite_fwd"]),
+                "composite_fwd box": cc.composite_fwd(
+                    *args["composite_fwd box"]),
+                "composite_bwd": cc.composite_bwd(*args["composite_bwd"]),
+                "segreduce": segreduce.segment_reduce_sorted(
+                    ids, rows, n_out, perm=perm)}
+    if "capsule" in wanted:
+        for b in K6_BS:
+            want[f"capsule B={b}"] = collision.capsule_best(
+                *args[f"capsule B={b}"])[:4]
     calls, regs_of = {}, {}
     for name, (kernel, lib, regs) in built.items():
         # K2's variants also run on the bench box, a sparse frame.
-        runs = [kernel] + (["composite_fwd box"] if kernel == "composite_fwd"
-                           else [])
+        runs = ([f"capsule B={b}" for b in K6_BS] if kernel == "capsule"
+                else [kernel] + (["composite_fwd box"]
+                                 if kernel == "composite_fwd" else []))
         for run in runs:
-            label = name + (" [bench box frame]" if run != kernel else "")
+            label = name + (f" [{run[8:]}]" if kernel == "capsule" else
+                            " [bench box frame]" if run != kernel else "")
             calls[label] = (lambda lib=lib, run=run: call_of[run](lib))
             regs_of[label] = regs
             got = check_of[run](calls[label]())
@@ -311,6 +421,15 @@ def measure(dev, kernels=tuple(KERNEL_OF), tree=None) -> dict:
             if not all(torch.equal(a, b) for a, b in zip(got, ref)):
                 raise RuntimeError(f"{label}: not bitwise equal to the built "
                                    "kernel")
+    if tree is not None and "capsule" in wanted:
+        for label, (fn, same_as) in tree_k6_calls(tree, *k6_in).items():
+            calls[label] = fn
+            if same_as is not None:
+                got, ref = fn(), want[same_as]
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise RuntimeError(f"{label}: not bitwise equal to "
+                                       f"{same_as}")
     if "segreduce" in wanted:
         n_in = int((ids < n_out).sum())
         ids_in, rows_in = ids[:n_in], rows[perm[:n_in]]

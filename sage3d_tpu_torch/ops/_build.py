@@ -77,11 +77,15 @@ KERNELS = {
         "sage3d_wavefront_relax": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     }),
     "capsule": ("capsule.cu", {
-        # p0, p1, radius, b, means, quats, log_scales, opac, n, chunk,
+        # p0, p1, radius, b, means, quats, log_scales, logits, n, chunk,
         # aabb_min (or NULL), aabb_max, max_scale, margin, opacity_thresh,
-        # sigma_cut, state, clear, idx, hits, visited, stream
-        "sage3d_capsule_query": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
-                                 _P, _P, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+        # sigma_cut, ids (or NULL), state, clear, idx, hits, visited, hit,
+        # nearest, clipped (or NULL), stream
+        "sage3d_capsule_query": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                 _P, _P, _P, _F, _F, _F, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P],
+        # logits, out, n, stream
+        "sage3d_capsule_sigmoid": [_P, _P, _I, _P],
     }),
 }
 
@@ -153,13 +157,18 @@ def load(name: str) -> ctypes.CDLL:
 
 def launch(fn, device: torch.device, *args) -> int:
     """Call the C entry point ``fn`` with ``args`` and then the current
-    stream of ``device`` (a CUDA device with its index). The device is made
-    current only where it is not already: entering ``torch.cuda.device``
-    costs host time on every launch. Returns ``fn``'s ``cudaError_t``."""
-    if device.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    stream of ``device`` (a CUDA device with its index), as the raw
+    ``cudaStream_t`` (``torch.cuda.current_stream`` builds a Python stream
+    object, ~15 us of host time a launch). The device is made current only
+    where it is not already: entering ``torch.cuda.device`` costs host time
+    on every launch. Returns ``fn``'s ``cudaError_t``."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        return fn(*args, stream)
     with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        return fn(*args, stream)
 
 
 def check(err: int, what: str) -> None:

@@ -14,18 +14,24 @@ counts as solid out to 2 sigma if its opacity exceeds ``opacity_thresh``.
 
 The math is the JAX package's; its channel-planar (B, chunk) layout, a TPU
 lane workaround, is not ported. On the card both queries are one launch of
-kernel K6 (``csrc/capsule.cu``, wrapper ``capsule_best``): per query the
-least clearance, its first Gaussian and the contact count, with no
-(B, N) temporaries and, for the pruned query, no host sync. Its plain twin
+kernel K6 (``csrc/capsule.cu``, wrapper ``capsule_best``) after a memset of
+its scratch: per query the least clearance, its first Gaussian and the
+contact count, with no (B, N) temporaries and, for the pruned query, no host
+sync. K6 reads the opacity logits (its solid test is PyTorch's sigmoid
+written out) and assembles the query's result itself (``hit``,
+``nearest_id``, the clearance clipped at the prune margin), so a query
+launches nothing else (but the fill of a radius given as a number) unless a
+gradient is asked for. Its plain twin
 ``capsule_best_plain`` (the CPU's path) walks the scene in passes of at most
 QUERY_PAIRS capsule-Gaussian pairs, so memory stays bounded whatever B and
-the scene's size. Both reduce the same packed key (``pack_key``: the
-clearance's order-preserving bits above the Gaussian index), so the least
-clearance and its first index come out of one integer minimum. The
-clearance is then recomputed with autograd for the one Gaussian each query
-picked, so ``clearance`` is differentiable w.r.t. ``p0`` and ``p1`` without
-keeping any pass's intermediates (an exact tie for the minimum sends the
-whole gradient to the first Gaussian, where ``jnp.min`` splits it).
+the scene's size, and assembles the result with ``_finish_plain``. Both
+reduce the same packed key (``pack_key``: the clearance's order-preserving
+bits above the Gaussian index), so the least clearance and its first index
+come out of one integer minimum. The clearance is then recomputed with
+autograd for the one Gaussian each query picked, so ``clearance`` is
+differentiable w.r.t. ``p0`` and ``p1`` without keeping any pass's
+intermediates (an exact tie for the minimum sends the whole gradient to the
+first Gaussian, where ``jnp.min`` splits it).
 
 Entry points take ``device=None``, which means the card; they raise when the
 scene's tensors lie elsewhere, and never fall back to the CPU.
@@ -33,7 +39,7 @@ scene's tensors lie elsewhere, and never fall back to the CPU.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -47,6 +53,8 @@ QUERY_PAIRS = 1 << 24   # capsule-Gaussian pairs a pass of the plain twin:
                         # each of its ~20 (B, pass) float32 temporaries takes
                         # at most 64 MiB
 NONE = (1 << 63) - 1    # the packed key of "no solid Gaussian"
+FEW_MAX = 4             # K6 takes its few-query schedule up to this B
+                        # (csrc/capsule.cu kFewMax)
 
 
 def _check_device(t: torch.Tensor, device, what: str) -> torch.device:
@@ -80,7 +88,7 @@ def _rotmat_channels(quats: torch.Tensor):
             (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)))
 
 
-def _clearance(p0, p1, radius, means, quats, log_scales, opac,
+def _clearance(p0, p1, radius, means, quats, log_scales, logits,
                opacity_thresh, sigma_cut):
     """(clear, contact) of B capsules against Gaussian columns that carry a
     leading broadcast axis: (1, C, ...) for every pair, giving (B, C), or
@@ -108,7 +116,7 @@ def _clearance(p0, p1, radius, means, quats, log_scales, opac,
         loc_j = (R[0][j] * fx + R[1][j] * fy + R[2][j] * fz) * inv_s[..., j]
         m2 = loc_j * loc_j if m2 is None else m2 + loc_j * loc_j
     maha = torch.sqrt(m2 + 1e-20)
-    solid = opac >= opacity_thresh
+    solid = torch.sigmoid(logits) >= opacity_thresh
     # Support radius along the contact direction: sigma_cut * dist / maha
     # (distance from center to the sigma_cut ellipsoid surface).
     support = sigma_cut * dist / torch.clamp(maha, min=1e-6)
@@ -122,11 +130,11 @@ def _clearance(p0, p1, radius, means, quats, log_scales, opac,
 
 def _columns(scene: GaussianScene, rows=None):
     """The Gaussian columns the query reads (means, quats, log-scales,
-    opacities), of the rows ``rows`` (all when None)."""
+    opacity logits), of the rows ``rows`` (all when None)."""
     cols = (scene.means, scene.quats, scene.log_scales, scene.opacity_logits)
-    if rows is not None:
-        cols = tuple(c[rows] for c in cols)
-    return cols[:3] + (torch.sigmoid(cols[3]),)
+    if rows is None:
+        return cols
+    return tuple(c[rows] for c in cols)
 
 
 def pack_key(clear: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -163,9 +171,36 @@ def _pass_best(q, cols, rows, opacity_thresh, sigma_cut):
             torch.sum(contact, dim=1, dtype=torch.int32))
 
 
+class Best(NamedTuple):
+    """K6's outputs. The last three are the query's result, filled when the
+    scene's semantic ids are given (None otherwise)."""
+
+    clear: torch.Tensor      # (B,) float32, BIG where no solid Gaussian
+    idx: torch.Tensor        # (B,) int64 first index at the minimum, -1
+    hits: torch.Tensor       # (B,) int32 contacts
+    visited: torch.Tensor    # () int32 chunks visited, 0 when dense
+    hit: Optional[torch.Tensor] = None         # (B,) bool, hits > 0
+    nearest_id: Optional[torch.Tensor] = None  # (B,) int32, -1
+    clearance: Optional[torch.Tensor] = None   # (B,) clear, clipped at the
+                                               # margin when pruned
+
+
+def _finish_plain(clear, idx, hits, ids, margin=None):
+    """Plain version of K6's result assembly: (hit, nearest_id, clearance)
+    from the winners, as ``capsule_query`` and ``capsule_query_pruned``
+    report them. ``margin`` clips the clearance (the pruned query), and
+    only a clearance below it (BIG when None) names a Gaussian."""
+    nid = torch.where(idx >= 0, ids[torch.clamp(idx, min=0)], -1)
+    limit = BIG
+    if margin is not None:
+        clear = torch.clamp(clear, max=margin)
+        limit = margin
+    return hits > 0, torch.where(clear < limit, nid, -1), clear
+
+
 def capsule_best_plain(q, cols, opacity_thresh=DEFAULT_OPACITY_THRESH,
                        sigma_cut=DEFAULT_SIGMA_CUT, pass_size=None,
-                       prune=None):
+                       prune=None, ids=None) -> Best:
     """Plain version of K6 (``capsule_best``): the same outputs, from passes
     of at most ``pass_size`` Gaussians (None: QUERY_PAIRS // B, at least the
     JAX package's chunk of 65536), or with ``prune`` of whole visited
@@ -199,31 +234,37 @@ def capsule_best_plain(q, cols, opacity_thresh=DEFAULT_OPACITY_THRESH,
                               opacity_thresh, sigma_cut)
         best = torch.minimum(best, words)
         hits = hits + h
-    return (*unpack_key(best), hits, visited)
+    clear, idx = unpack_key(best)
+    if ids is None:
+        return Best(clear, idx, hits, visited)
+    return Best(clear, idx, hits, visited, *_finish_plain(
+        clear, idx, hits, ids, None if prune is None else prune[3]))
 
 
 def capsule_best(q, cols, opacity_thresh=DEFAULT_OPACITY_THRESH,
-                 sigma_cut=DEFAULT_SIGMA_CUT, pass_size=None, prune=None):
+                 sigma_cut=DEFAULT_SIGMA_CUT, pass_size=None, prune=None,
+                 ids=None) -> Best:
     """K6: per query, the least clearance over the solid Gaussians, the
-    first index that reaches it and the contact count.
+    first index that reaches it and the contact count; with ``ids`` also
+    the query's result.
 
     ``q`` is (p0, p1, radius): (B, 3), (B, 3), (B,) float32; ``cols`` the
-    Gaussians' (means (N, 3), quats (N, 4), log-scales (N, 3), opacities
-    (N,)) float32. ``prune`` is None for the dense query, or the accel's
-    (aabb_min, aabb_max, max_scale, prune_margin), its N Gaussians in
-    n_chunks whole chunks: then only the chunks some capsule can reach are
-    walked. Returns (clearance (B,) float32, BIG where no solid Gaussian;
-    index (B,) int64, -1 for none; contacts (B,) int32; chunks visited, a
-    0-dim int32, 0 when dense).
+    Gaussians' (means (N, 3), quats (N, 4), log-scales (N, 3), opacity
+    logits (N,)) float32. ``prune`` is None for the dense query, or the
+    accel's (aabb_min, aabb_max, max_scale, prune_margin), its N Gaussians
+    in n_chunks whole chunks: then only the chunks some capsule can reach
+    are walked. ``ids`` is the scene's (N,) int32 semantic ids. Returns a
+    ``Best``.
 
     A CPU tensor takes the plain version (``pass_size`` sizes its passes);
-    a CUDA tensor launches ``csrc/capsule.cu``: one launch after a
-    zero-fill, no host sync, O(B) scratch."""
+    a CUDA tensor launches ``csrc/capsule.cu``: a memset of O(B) scratch
+    and one launch, no host sync; B above FEW_MAX takes the many-query
+    schedule."""
     p0, p1, radius = q
-    means, quats, log_scales, opac = cols
+    means, quats, log_scales, logits = cols
     b, n = p0.shape[0], means.shape[0]
     want = [(p0, (b, 3)), (p1, (b, 3)), (radius, (b,)), (means, (n, 3)),
-            (quats, (n, 4)), (log_scales, (n, 3)), (opac, (n,))]
+            (quats, (n, 4)), (log_scales, (n, 3)), (logits, (n,))]
     if prune is not None:
         n_chunks = prune[0].shape[0]
         want += [(prune[0], (n_chunks, 3)), (prune[1], (n_chunks, 3)),
@@ -235,65 +276,101 @@ def capsule_best(q, cols, opacity_thresh=DEFAULT_OPACITY_THRESH,
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"capsule_best: expected {shape} float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
+    if ids is not None:
+        if tuple(ids.shape) != (n,) or ids.dtype != torch.int32:
+            raise ValueError(f"capsule_best: expected ({n},) int32 ids, got "
+                             f"{tuple(ids.shape)} {ids.dtype}")
+        want.append((ids, (n,)))
     dev = means.device
     if any(t.device != dev for t, _ in want):
         raise ValueError("capsule_best: inputs on different devices")
     if dev.type == "cpu":
         return capsule_best_plain(q, cols, opacity_thresh, sigma_cut,
-                                  pass_size, prune)
+                                  pass_size, prune, ids)
     if dev.type != "cuda":
         raise ValueError(f"capsule_best: unsupported device {dev}")
     if n >= 2**31:
         raise ValueError("capsule_best: at most 2^31 - 1 Gaussians")
-    ptr = [t.contiguous() for t, _ in want]
-    state = torch.zeros((2 * b + 1,), dtype=torch.int64, device=dev)
-    clear = torch.empty((b,), dtype=torch.float32, device=dev)
-    idx = torch.empty((b,), dtype=torch.int64, device=dev)
-    hits = torch.empty((b,), dtype=torch.int32, device=dev)
-    visited = torch.empty((), dtype=torch.int32, device=dev)
+
+    held = []   # contiguous copies live until the launch is queued
+
+    def ptr(t):
+        if t is None:
+            return None
+        held.append(t.contiguous())
+        return held[-1].data_ptr()
+
+    def out(dtype, shape=(b,)):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    state = out(torch.int64, (2 * b + 2,))
+    res = Best(out(torch.float32), out(torch.int64), out(torch.int32),
+               out(torch.int32, ()))
+    if ids is not None:
+        clipped = None if prune is None else out(torch.float32)
+        res = res._replace(hit=out(torch.bool), nearest_id=out(torch.int32),
+                           clearance=res.clear if clipped is None
+                           else clipped)
     bounds = ((None, None, None, 0.0) if prune is None else
-              (*(t.data_ptr() for t in ptr[7:]), float(prune[3])))
+              (*(ptr(t) for t in prune[:3]), float(prune[3])))
     err = _build.launch(
-        _build.load("capsule").sage3d_capsule_query, dev,
-        *(t.data_ptr() for t in ptr[:3]), b,
-        *(t.data_ptr() for t in ptr[3:7]), n,
+        _build.load("capsule").sage3d_capsule_query, dev, ptr(p0), ptr(p1),
+        ptr(radius), b,
+        *(ptr(t) for t in cols), n,
         n if prune is None else n // prune[0].shape[0], *bounds,
-        float(opacity_thresh), float(sigma_cut), state.data_ptr(),
-        clear.data_ptr(), idx.data_ptr(), hits.data_ptr(),
-        visited.data_ptr())
+        float(opacity_thresh), float(sigma_cut), ptr(ids),
+        state.data_ptr(), *(ptr(t) for t in res[:4]), ptr(res.hit),
+        ptr(res.nearest_id),
+        None if prune is None or ids is None else ptr(res.clearance))
     _build.check(err, "capsule_best")
     capsule_best.launches += 1
-    return clear, idx, hits, visited
+    return res
 
 
 capsule_best.launches = 0
 
 
-def _result(scene, best_clear, best_idx, hits, q, opacity_thresh, sigma_cut,
+def capsule_sigmoid(logits: torch.Tensor) -> torch.Tensor:
+    """The sigmoid of K6's solid test over float32 ``logits``: on a CUDA
+    tensor K6's own device function (``csrc/capsule.cu``), which must equal
+    ``torch.sigmoid`` bitwise there; on the CPU ``torch.sigmoid``."""
+    if logits.dtype != torch.float32:
+        raise ValueError("capsule_sigmoid: expected float32 logits")
+    if logits.device.type == "cpu":
+        return torch.sigmoid(logits)
+    if logits.device.type != "cuda":
+        raise ValueError(f"capsule_sigmoid: unsupported device "
+                         f"{logits.device}")
+    x = logits.contiguous()
+    y = torch.empty_like(x)
+    _build.check(_build.launch(_build.load("capsule").sage3d_capsule_sigmoid,
+                               x.device, x.data_ptr(), y.data_ptr(),
+                               x.numel()), "capsule_sigmoid")
+    return y
+
+
+def _result(scene, best: Best, q, opacity_thresh, sigma_cut,
             margin=None) -> Dict[str, torch.Tensor]:
-    """The query's outputs from the winning Gaussian of each query
-    (``best_idx``, -1 for none). Where ``p0`` or ``p1`` asks for a gradient,
-    the clearance carries the autograd of its recomputation against that
-    Gaussian (the value stays the one found)."""
-    found = best_idx >= 0
-    idx = torch.clamp(best_idx, min=0)
-    clear = best_clear
+    """The query's outputs from K6's result (``best``, its ids given).
+    Where ``p0`` or ``p1`` asks for a gradient, the clearance carries the
+    autograd of its recomputation against each query's winning Gaussian
+    (the value stays the one found)."""
+    clear = best.clearance
     p0, p1, _ = q
     if torch.is_grad_enabled() and (p0.requires_grad or p1.requires_grad):
+        found = best.idx >= 0
+        idx = torch.clamp(best.idx, min=0)
         again = _clearance(*q, *(c[:, None] for c in _columns(scene, idx)),
                            opacity_thresh, sigma_cut)[0][:, 0]
-        clear = clear + torch.where(found, again - again.detach(),
-                                    torch.zeros_like(again))
-    nid = torch.where(found, scene.semantic_ids[idx], -1)
-    limit = BIG
-    if margin is not None:
-        clear = torch.clamp(clear, max=margin)
-        limit = margin
+        clear = best.clear + torch.where(found, again - again.detach(),
+                                         torch.zeros_like(again))
+        if margin is not None:
+            clear = torch.clamp(clear, max=margin)
     return {
         "clearance": clear,
-        "hit": hits > 0,
-        "hit_count": hits,
-        "nearest_id": torch.where(clear < limit, nid, -1),
+        "hit": best.hit,
+        "hit_count": best.hits,
+        "nearest_id": best.nearest_id,
     }
 
 
@@ -327,8 +404,9 @@ def capsule_query(
     q = _queries(p0, p1, radius, dev)
     with torch.no_grad():
         best = capsule_best(tuple(t.detach() for t in q), _columns(scene),
-                            opacity_thresh, sigma_cut, pass_size=chunk)
-    return _result(scene, *best[:3], q, opacity_thresh, sigma_cut)
+                            opacity_thresh, sigma_cut, pass_size=chunk,
+                            ids=scene.semantic_ids)
+    return _result(scene, best, q, opacity_thresh, sigma_cut)
 
 
 class CollisionAccel(NamedTuple):
@@ -450,7 +528,7 @@ def capsule_query_pruned(
     chunks some query reaches.
 
     On the card this is one launch of K6, which tests each chunk itself and
-    returns at once from those no capsule reaches: no host sync. The plain
+    skips those no capsule reaches: no host sync. The plain
     twin finds the visited chunks with one ``nonzero`` and sweeps them in
     chunk order, so the first minimum is the JAX package's (whose scan
     skips the other chunks one by one).
@@ -459,13 +537,13 @@ def capsule_query_pruned(
     dev = _check_device(scene.means, device, "the collision accel")
     q = _queries(p0, p1, radius, dev)
     with torch.no_grad():
-        clear, idx, hits, visited = capsule_best(
+        best = capsule_best(
             tuple(t.detach() for t in q), _columns(scene), opacity_thresh,
-            sigma_cut, prune=(accel.aabb_min, accel.aabb_max,
-                              accel.max_scale, prune_margin))
-    out = _result(scene, clear, idx, hits, q, opacity_thresh, sigma_cut,
+            sigma_cut, prune=(accel.aabb_min, accel.aabb_max, accel.max_scale,
+                   prune_margin), ids=scene.semantic_ids)
+    out = _result(scene, best, q, opacity_thresh, sigma_cut,
                   margin=prune_margin)
-    out["chunks_visited"] = visited
+    out["chunks_visited"] = best.visited
     return out
 
 

@@ -410,25 +410,108 @@ def test_wavefront_kernel_is_bitwise_its_plain_twin():
 
 def test_capsule_kernel_matches_its_plain_twin():
     """K6 (``capsule_best``) against ``capsule_best_plain`` on the card,
-    dense and pruned, B = 1, 4, 64: indices and contact counts equal, the
-    clearance within 1e-5 (the same f32 operations: 0 expected)."""
+    dense and pruned, B = 1, 4, 64, 257 (both schedules, two query tiles),
+    on a room and on its adversarial copy (``tests/capsule_cases.py``):
+    indices, contact counts, chunks visited and the assembled result equal,
+    the clearance within 1e-5 (the same f32 operations: 0 expected); a
+    radius given as a stride-0 view gives the same outputs as the filled
+    one."""
+    from capsule_cases import adversarial_room, capsules
     from sage3d_tpu_torch.ops import collision
     _need_card("K6")
-    scene = synthetic_room(50_000, seed=3, device="cuda")
-    accel = collision.build_collision_accel(scene, chunk=2048)
-    xy = np.random.default_rng(1).uniform(-4.5, 4.5, (64, 2))
-    for b in (1, 4, 64):
-        q = collision._queries(*collision.agent_capsule(xy[:b]),
-                               torch.device("cuda"))
-        for cols, prune in (
-                (collision._columns(scene), None),
-                (collision._columns(accel.scene),
-                 (accel.aabb_min, accel.aabb_max, accel.max_scale, 2.0))):
-            got = collision.capsule_best(q, cols, prune=prune)
-            want = collision.capsule_best_plain(q, cols, prune=prune)
-            for k in (1, 2, 3):
-                assert torch.equal(got[k], want[k]), (b, prune is None, k)
-            torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+    base = synthetic_room(50_000, seed=3, device="cuda")
+    xy = capsules(257)
+    for scene in (base, adversarial_room(base)):
+        accel = collision.build_collision_accel(scene, chunk=2048)
+        for b in (1, 4, 64, 257):
+            q = collision._queries(*collision.agent_capsule(xy[:b]),
+                                   torch.device("cuda"))
+            for sc, prune in (
+                    (scene, None),
+                    (accel.scene, (accel.aabb_min, accel.aabb_max,
+                                   accel.max_scale, 2.0))):
+                cols, ids = collision._columns(sc), sc.semantic_ids
+                got = collision.capsule_best(q, cols, prune=prune, ids=ids)
+                want = collision.capsule_best_plain(q, cols, prune=prune,
+                                                    ids=ids)
+                for k in (1, 2, 3, 4, 5):
+                    assert torch.equal(got[k], want[k]), (b, prune is None,
+                                                          k)
+                for k in (0, 6):
+                    torch.testing.assert_close(got[k], want[k], rtol=0,
+                                               atol=1e-5)
+                # a radius tensor that is a stride-0 view takes a copy
+                stretched = q[2][:1].expand(b)
+                again = collision.capsule_best((*q[:2], stretched), cols,
+                                               prune=prune, ids=ids)
+                for k in range(7):
+                    assert torch.equal(again[k], got[k]), (b, k)
+
+
+def _k6_case():
+    from capsule_cases import capsules
+    from sage3d_tpu_torch.ops import collision
+    dev = torch.device("cuda", 0)
+    cols = collision._columns(synthetic_room(50_000, seed=3, device=dev))
+    q = collision._queries(*collision.agent_capsule(capsules(64)), dev)
+    return q, cols, collision.capsule_best(q, cols)
+
+
+def test_launch_takes_the_current_stream():
+    """``_build.launch`` hands a kernel the current stream as a raw
+    ``cudaStream_t`` (``torch._C._cuda_getCurrentRawStream``, not a public
+    API): K6 launched inside ``torch.cuda.stream(s)`` must be queued behind
+    the work already on ``s``."""
+    from sage3d_tpu_torch.ops import collision
+    _need_card("K6")
+    q, cols, want = _k6_case()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        # The capsules reach K6's input only after ~0.5 s of spinning on s:
+        # on any other stream K6 would read the zeros.
+        p0 = torch.zeros_like(q[0])
+        torch.cuda._sleep(1 << 30)
+        p0.copy_(q[0])
+        got = collision.capsule_best((p0, *q[1:]), cols)
+    s.synchronize()
+    for k in range(4):
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_launch_takes_the_tensors_device():
+    """``_build.launch`` makes the tensors' card current for the launch and
+    takes that card's stream: K6 on card 1's tensors while card 0 is
+    current gives card 0's outputs bit for bit."""
+    from sage3d_tpu_torch.ops import collision
+    _need_card("K6")
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the second device index")
+    q, cols, want = _k6_case()
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    far = collision.capsule_best(tuple(t.to(other) for t in q),
+                                 tuple(t.to(other) for t in cols))
+    assert far.clear.device == other
+    for k in range(4):
+        assert torch.equal(far[k].cpu(), want[k].cpu()), k
+
+
+def test_capsule_sigmoid_is_torch_sigmoid():
+    """K6's solid test takes PyTorch's CUDA sigmoid written out: bitwise
+    ``torch.sigmoid`` over a room's logits, a sweep across the 0.5
+    threshold and the extremes."""
+    from sage3d_tpu_torch.ops import collision
+    _need_card("K6's sigmoid")
+    x = torch.cat([
+        synthetic_room(200_000, seed=1, device="cuda").opacity_logits,
+        torch.linspace(-1e-5, 1e-5, 1 << 16, device="cuda"),
+        torch.randn(1 << 16, device="cuda") * 30,
+        torch.tensor([0.0, -0.0, 88.0, -88.0, 104.0, -104.0, float("inf"),
+                      -float("inf")], device="cuda")])
+    got = collision.capsule_sigmoid(x)
+    assert torch.equal(got.view(torch.int32),
+                       torch.sigmoid(x).view(torch.int32))
 
 
 def test_waypoint_images_on_the_card_match_cpu(tmp_path):
