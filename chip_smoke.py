@@ -104,7 +104,9 @@ no result line):
      agent moves > 0.3 m; env-steps/s, the step split into render, policy
      and physics, and collision (CUDA events over a replay of the loop),
      device busy and idle share a step, peak memory; ``rollout_batch`` B = 4
-     in both modes, each equal to the single rollouts; K1 and K2 against
+     in both modes (``vmap``: the 4 agents in lockstep, K1, K2 and K6 once
+     a step; ``map``: one episode after another), each equal to the single
+     rollouts; K1 and K2 against
      their plain versions, with the gates of phases 3 and 4, at the densest
      of the 16 probe poses and at the rollout frame that walked the most
      chunks, with the 9b budgets;
@@ -128,7 +130,8 @@ no result line):
      trajectories/s and the planner's share; 10c, ``transform_2d3d``, merge,
      ``actions``, ``generate_scene_images`` at 1024x768 over 8 trajectories
      with ``autotune_poses`` budgets over every waypoint camera, and the
-     NaVILA set: overflow 0, K1 and K2 once a frame, a batch of ``cuda``
+     NaVILA set: overflow 0, K1 and K2 once a batch of frames, a batch of
+     ``cuda``
      frames within ``BACKEND_ATOL`` of the ``torch`` backend's, K1 and K2
      against their plain versions at the densest waypoint frame; frames/s,
      Mpix/s, a frame's split (render, uint8 and copy, JPEG), device busy;
@@ -191,7 +194,39 @@ no result line):
      ``fit_scene_adaptive`` on a (1, 2) mesh at cell adc's sizes (20 steps,
      rounds after 10 and 20): the trainer's bitwise check of every rank's
      scene after each round, the fitted scenes bitwise equal, the loss
-     falling between rounds; step and round ms.
+     falling between rounds; step and round ms;
+ 14. the camera-batched path (``batched_path``): 14a, K1, K2 and K3 launched
+     once for frame a's camera and one 0.3 m beside it (B = 2 at
+     1920x1080, budgets from one batched ``autotune_poses``) against each
+     camera's own launches: K1's pairs sorted by (tile, rank) equal in both
+     key modes, and equal to its plain version's on the batch's inputs,
+     K2's images and k_end bitwise, K3's slot rows bitwise (ids
+     mapped) and the backward's d_attrs through K3, the id sort and K4 over
+     B·N ids bitwise; the batched launches' ms, back-to-back ms, plain ms
+     and bounds (summed over the batch's work) beside the cameras' own
+     launches, and their launches counted over the batched calls of
+     14b-14e alone; 14b, ``render_batch`` of those 2 cameras, batched and
+     ``sequential=True``: launches (K1 and K2 once a batch) and host syncs
+     (at most ``BATCH_SYNCS_MAX``) of a batch, the outputs bitwise equal,
+     ms, device busy and idle share; 14c, the same for phase 10c's first
+     waypoint batch of 8 at 1024x768 (cell i), with 14a's kernel checks;
+     14d, ``rollout_batch`` of ``BATCH_ROLL_B`` agents for
+     ``BATCH_ROLL_STEPS`` steps at 640x480 on the 1M room in both modes
+     against single rollouts: every output bitwise, overflow 0, K1, K2 and
+     K6 once a lockstep step; aggregate env-steps/s of both modes and of
+     one episode, device busy and idle share of a lockstep step; the
+     rollout's budgets from ``autotune_poses`` over 664 poses, in probe
+     groups of ``PROBE_ROWS`` rows and in id-limit groups (as in 10c):
+     the same budgets, wall time and peak memory of each; 14e, the
+     train step over frame a's 2 cameras and the ADC step over phase 12's
+     4 views at 640x480 (the 200k room's ``importance_subset`` at capacity
+     200k), batched against the per-camera loop: loss within
+     ``BATCH_LOSS_REL``, gradients within ``BATCH_GRAD_REL`` of each
+     group's max, K1-K4 once a batched step; step ms, device busy, K3's
+     device time and peak memory of both, and the peak of the 1080p/1M
+     step at one camera.
+
+Each phase's peak device memory is printed after phase 14.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -336,6 +371,61 @@ def check(ok: bool, what: str) -> None:
         FAILURES.append(what)
 
 
+_PHASE_PEAK = [0]      # the running phase's peak device memory, over resets
+
+
+def reset_peak_memory() -> None:
+    """``torch.cuda.reset_peak_memory_stats``, folding the peak so far into
+    the running phase's (``phase_peak``)."""
+    import torch
+    _PHASE_PEAK[0] = max(_PHASE_PEAK[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def begin_phase_peak() -> None:
+    reset_peak_memory()
+    _PHASE_PEAK[0] = 0
+
+
+def phase_peak() -> int:
+    """Peak device memory since ``begin_phase_peak``, bytes."""
+    import torch
+    torch.cuda.synchronize()
+    return max(_PHASE_PEAK[0], torch.cuda.max_memory_allocated())
+
+
+def autotune_groups(scene, cams, label: str, card: str, **kw) -> dict:
+    """``autotune_poses`` probing in its groups of ``PROBE_ROWS`` Gaussian
+    rows and in the largest groups the f32 id limit allows: wall time and
+    peak device memory of each. The budgets must be equal; returns them."""
+    import torch
+    from sage3d_tpu_torch.renderer import render as rmod
+    probe = rmod.PROBE_ROWS
+    res = {}
+    for size in (probe, None):
+        rmod.PROBE_ROWS = size
+        try:
+            torch.cuda.synchronize()
+            reset_peak_memory()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res[size] = rmod.autotune_poses(scene, cams, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            rmod.PROBE_ROWS = probe
+        groups = rmod.camera_groups(cams.position.shape[0],
+                                    scene.num_gaussians, size)
+        print(f"{label} autotune_poses over {cams.position.shape[0]} poses "
+              f"at {cams.width}x{cams.height} in {len(groups)} group(s) of at "
+              f"most {groups[0].stop} cameras {card}: {wall:.2f} s, peak "
+              f"device memory {(torch.cuda.max_memory_allocated() - held) / 2**30:.2f}"
+              f" GiB above the {held / 2**30:.2f} GiB held", flush=True)
+    check(res[probe] == res[None], f"{label}: autotune_poses gives the same "
+          "budgets in probe groups and in id-limit groups")
+    return res[probe]
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events around
     each run, after ``warmup`` runs."""
@@ -471,9 +561,11 @@ def walked_pairs(pg, start, count, chunks):
     return walked, int(torch.unique(pg[seen]).numel())
 
 
-def alpha_hits(attrs, pg, start, count, tiles_x, chunks) -> int:
+def alpha_hits(attrs, pg, start, count, tiles_x, chunks,
+               cam_tiles: int = 0) -> int:
     """Pair-pixel evaluations with alpha > 0 in the first ``chunks[t]``
-    chunks of every tile, by the plain versions' alpha."""
+    chunks of every tile, by the plain versions' alpha (``cam_tiles``: the
+    tiles of one camera of a batch; 0 for one camera)."""
     import torch
     from sage3d_tpu_torch.ops import composite_cuda as cc
     dev = attrs.device
@@ -483,8 +575,7 @@ def alpha_hits(attrs, pg, start, count, tiles_x, chunks) -> int:
     with torch.no_grad():
         for t0 in range(0, n_t, 64):
             tid = torch.arange(t0, min(t0 + 64, n_t), device=dev)
-            ox = ((tid % tiles_x) * cc.TILE_W).float()[:, None, None]
-            oy = ((tid // tiles_x) * cc.TILE_H).float()[:, None, None]
+            ox, oy = cc._origin(tid, tiles_x, cam_tiles or n_t)
             walk = chunks[tid].long()
             for k in range(int(walk.max())):
                 alpha = cc._plain_chunk(attrs, pg, start[tid].long(),
@@ -852,7 +943,7 @@ def navigation(room, card: str) -> list:
         memory held now."""
         torch.cuda.synchronize()
         peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak_memory()
         return torch.cuda.memory_allocated()
 
     def counted(fn):
@@ -1046,8 +1137,9 @@ def navigation(room, card: str) -> list:
     kw = dict(n_steps=NAV_BATCH_STEPS, **size)
     singles = [counted(lambda: rollout(room, grid, starts[b], yaws[b],
                                        goals[b], **kw))[0] for b in range(4)]
-    # Both modes run the episodes one after another; each is held against
-    # the single rollouts, so the two equal each other too.
+    # "vmap" runs the 4 agents in lockstep (one K1, K2 and K6 launch a
+    # step), "map" the episodes one after another; each is held against the
+    # single rollouts, so the two equal each other too.
     for mode in ("vmap", "map"):
         batch, n_b = counted(lambda: rollout_batch(
             room, grid, starts, yaws, goals, batch_mode=mode, **kw))
@@ -1062,11 +1154,13 @@ def navigation(room, card: str) -> list:
               f"per episode "
               f"{batch['total_overflow'].tolist()}, vs the single rollouts "
               f"max |diff| {worst:.3e}, bitwise {bitwise}", flush=True)
-        check(n_b == [4 * NAV_BATCH_STEPS] * 3
+        per_step = 1 if mode == "vmap" else 4
+        check(n_b == [per_step * NAV_BATCH_STEPS] * 3
               and int(batch["total_overflow"].sum()) == 0
               and worst <= NAV_CLEAR_TOL,
-              f"9b rollout_batch {mode}: K1, K2 and K6 once a step, overflow "
-              "0, equal to the single rollouts")
+              f"9b rollout_batch {mode}: K1, K2 and K6 once a "
+              f"{'lockstep step' if mode == 'vmap' else 'step'}, overflow 0, "
+              "equal to the single rollouts")
 
     # K1 and K2 against their plain versions at this path's own shapes and
     # budgets: the densest probe pose (the most chunks walked) and the
@@ -1448,31 +1542,39 @@ def data_path(room, room_200k, card: str) -> list:
     points = [pt for rec in gt for pt in rec["sampled_points"]]
     n_frames = len(points)
     cams = images.waypoint_cameras(points, DATA_W, DATA_H, device=dev)
-    t0 = time.perf_counter()
-    budgets = autotune_poses(room, cams, pair_margin=1.5)
+    budgets = autotune_groups(room, cams, "10c", card, pair_margin=1.5)
     bk = budget_kwargs(budgets)
     print(f"10c budgets (autotune_poses over the {n_frames} waypoint cameras "
-          f"of {len(gt)} trajectories, pair_margin 1.5, "
-          f"{time.perf_counter() - t0:.1f} s): {json.dumps(budgets)}",
-          flush=True)
+          f"of {len(gt)} trajectories, pair_margin 1.5): "
+          f"{json.dumps(budgets)}", flush=True)
+    torch.cuda.synchronize()
+    reset_peak_memory()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     meta, n_i = counted(lambda: images.generate_scene_images(
         room, gt_path, tmp / "images", "room1m", batch_size=DATA_BATCH,
         max_trajectories=DATA_TRAJS, width=DATA_W, height=DATA_H, device=dev,
         **bk))
     img_s = time.perf_counter() - t0
+    img_peak = torch.cuda.max_memory_allocated() - held
     frames_done = sum(t["num_frames"] for t in meta["trajectories"].values())
+    n_batches = sum(-(-t["num_frames"] // DATA_BATCH)
+                    for t in meta["trajectories"].values())
     print(f"10c generate_scene_images, {len(meta['trajectories'])} "
           f"trajectories, {frames_done} frames at {DATA_W}x{DATA_H}, batch "
           f"{DATA_BATCH} {card}: {img_s:.3f} s, {frames_done / img_s:.2f} "
           f"frames/s, {frames_done * DATA_W * DATA_H / img_s / 1e6:.2f} "
           f"Mpix/s (host clock, JPEG encode included), launches K1 {n_i[0]} "
           f"K2 {n_i[1]} ({n_i[0] / frames_done:g} and {n_i[1] / frames_done:g}"
-          f" a frame), total_overflow {meta['total_overflow']}", flush=True)
+          f" a frame, in {n_batches} batches), total_overflow "
+          f"{meta['total_overflow']}, peak device memory "
+          f"{img_peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+          "held", flush=True)
     check(frames_done == n_frames >= DATA_BATCH,
           "10c: a frame for every waypoint")
     check(meta["total_overflow"] == 0, "10c: overflow 0 on every frame")
-    check(n_i == [frames_done, frames_done], "10c: K1 and K2 once a frame")
+    check(n_i == [n_batches, n_batches],
+          "10c: K1 and K2 once a batch of waypoint frames")
 
     # Where a frame's time goes: the first trajectory's batches replayed
     # with CUDA events around the render and the uint8 conversion with its
@@ -1669,7 +1771,7 @@ def data_path(room, room_200k, card: str) -> list:
           "10d: each file hot-swapped its scene in; the env ends with the last"
           " scene's budgets")
     tmpdir.cleanup()
-    return launched, k5
+    return launched, k5, (bc, bk)
 
 
 def launches_of(kernels, fn):
@@ -2180,7 +2282,7 @@ def adc_training(target, card) -> dict:
                                  grad_threshold=ADC_GRAD)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     tr.make_train_step, tr.densify_prune, tr.zero_opacity_moments = \
         make_train_step, densify_prune, zero_opacity_moments
     t0 = time.perf_counter()
@@ -2654,6 +2756,529 @@ def sharded_path(ref_a, kend_a, budgets_a, budgets_train, card) -> dict:
     return total
 
 
+# --- phase 14: the camera-batched path -----------------------------------------
+BATCH_CAMS_A = 2        # 14a-b, 14e: frame a and a camera beside it
+BATCH_ROLL_B = 8        # 14d: agents of the lockstep rollout
+BATCH_ROLL_STEPS = 25   # 14d: steps of each episode
+BATCH_SYNCS_MAX = 2     # 14b-c: host syncs of a batch's render
+BATCH_LOSS_REL = 1e-6   # 14e: batched vs per-camera loss, relative
+BATCH_GRAD_REL = 1e-5   # 14e: batched vs per-camera gradients, of max |grad|
+
+
+def per_camera_pairs(keys, gauss, n_kept, mult, n_tiles, n_gauss, n_cams):
+    """K1's kept pairs split by camera: for each camera its (tile within
+    the camera << 31 | rank) int64 keys, sorted, and their Gaussian ids
+    within the camera (one camera: n_cams = 1)."""
+    import torch
+    n = int(n_kept)
+    k = keys[:n].to(torch.int64)
+    if mult:
+        k = (k // mult) << 31 | (k % mult)
+    cam = (k >> 31) // n_tiles
+    out = []
+    for b in range(n_cams):
+        mine = cam == b
+        kb, order = torch.sort(k[mine] - ((b * n_tiles) << 31))
+        out.append((kb, gauss[:n][mine][order] - b * n_gauss))
+    return out
+
+
+def batch_inputs(scene, cams, bk):
+    """The kernels' inputs for a stacked camera batch, as ``render`` builds
+    them with the budgets ``bk``: projection, plan, bins, attrs and K2's
+    arguments (with ``cam_tiles``)."""
+    import torch
+    from sage3d_tpu_torch.ops import binning, composite_cuda as cc
+    from sage3d_tpu_torch.ops.projection import project_gaussians
+    ekw = {k: bk[k] for k in binning.EMIT_BUDGET_KEYS}
+    with torch.no_grad():
+        proj = project_gaussians(scene, cams)
+        plan = binning.emission_plan(proj, cams.width, cams.height, **ekw)
+        bins = binning.bin_gaussians(proj, cams.width, cams.height, **ekw)
+    attrs = cc.attribute_table(proj, scene.semantic_ids)
+    pg, start, count, _ = cc.trim_to_capacity(bins, bk["pair_capacity"])
+    count = torch.clamp(count, max=bk["tile_capacity"])
+    n_tiles = bins.tiles_x * bins.tiles_y
+    return dict(proj=proj, plan=plan, bins=bins, attrs=attrs,
+                k2_args=(attrs, pg, start, count, bins.tiles_x),
+                n_tiles=n_tiles)
+
+
+def kernels_batched_vs_single(scene, cam_list, bk, label):
+    """K1, K2 and K3 launched once for the stacked cameras against their
+    launches camera by camera: K1's pairs sorted, K2's images and k_end
+    bitwise, K3's slot rows bitwise (ids mapped) and the backward's d_attrs
+    through K3, the id sort and K4 bitwise, each camera's. K1's batched
+    launch is also held against its plain version on the batch's inputs,
+    in both key modes (``k1_err``: the largest |difference| of the sorted
+    keys and their Gaussians, 0 where equal). Returns the batch's inputs
+    and K1/K2/K3 results for the times that follow."""
+    import torch
+    from sage3d_tpu_torch.ops import binning, composite_cuda as cc
+    from sage3d_tpu_torch.renderer.camera import stack_cameras
+    cams = stack_cameras(cam_list)
+    n_cams = len(cam_list)
+    bt = batch_inputs(scene, cams, bk)
+    ones = [batch_inputs(scene, stack_cameras([c]), bk) for c in cam_list]
+    n_g, n_tiles, plan = scene.num_gaussians, bt["n_tiles"], bt["plan"]
+    k1_args = (plan.table, plan.offsets, plan.n_live, plan.tiles_x)
+    k1_equal = True
+    k1_err = 0.0
+    for fused in (True, False):
+        m = plan.mult if fused else 0
+        launched = binning.emit_tile_pairs(*k1_args, m)
+        plain = binning.emit_tile_pairs_plain(*k1_args, m)
+        n_k, n_p = int(launched[2]), int(plain[2])
+        if n_k != n_p:
+            k1_err = None
+        elif k1_err is not None:
+            keys_k, order_k = torch.sort(launched[0][:n_k].to(torch.int64))
+            keys_p, order_p = torch.sort(plain[0].to(torch.int64))
+            k1_err = max(k1_err, float((keys_k - keys_p).abs().max()),
+                         float((launched[1][:n_k][order_k]
+                                - plain[1][order_p]).abs().max()))
+        del plain
+        print(f"14 K1 at {label}, B={n_cams}, {'fused' if fused else 'two-key'}"
+              f" keys: {n_k} pairs kept by the launch, {n_p} by the plain "
+              f"version; sorted, max |difference| {k1_err}", flush=True)
+        got = per_camera_pairs(*launched, m, n_tiles, n_g, n_cams)
+        del launched
+        for b, one in enumerate(ones):
+            p1 = one["plan"]
+            m1 = p1.mult if fused else 0
+            want = per_camera_pairs(*binning.emit_tile_pairs(
+                p1.table, p1.offsets, p1.n_live, p1.tiles_x, m1), m1,
+                n_tiles, n_g, 1)[0]
+            k1_equal &= (torch.equal(got[b][0], want[0])
+                         and torch.equal(got[b][1], want[1]))
+    print(f"14 K1 at {label}, B={n_cams}: one launch, {plan.n_live} live "
+          f"slots, {'fused' if plan.mult else 'two-key'} sort (mult "
+          f"{plan.mult}); each camera's pairs, sorted, equal to its own "
+          f"launch in both key modes: {k1_equal}", flush=True)
+    check(k1_equal, f"14 {label}: K1 once for the batch, each camera's pairs "
+          "equal to its own launch (fused and two-key)")
+    check(k1_err == 0.0, f"14 {label}: K1 once for the batch, its pairs, "
+          "sorted, equal to its plain version's (fused and two-key)")
+
+    out, kend = cc.composite_fwd(*bt["k2_args"], cam_tiles=n_tiles)
+    gen = torch.Generator(device=out.device).manual_seed(0)
+    gout = torch.randn(out.shape, generator=gen, device=out.device)
+    c_cap = max(int(kend.view(n_cams, -1).sum(1).max()), 1)
+    chunk0, allowed = cc.slot_ranges(kend, c_cap, n_cams)
+    k3_args = (*bt["k2_args"][:4], chunk0, allowed, out, gout,
+               n_cams * c_cap, bt["k2_args"][4])
+    slots = cc.composite_bwd(*k3_args, cam_tiles=n_tiles)
+    d_batch = cc.composite_vjp(*bt["k2_args"][:4], kend, out, gout,
+                               bt["k2_args"][4], c_cap, cam_tiles=n_tiles,
+                               groups=n_cams)
+    k2_same = k3_same = d_same = True
+    rows = c_cap * cc.CHUNK
+    k3_ones = []
+    for b, one in enumerate(ones):
+        t = slice(b * n_tiles, (b + 1) * n_tiles)
+        out1, kend1 = cc.composite_fwd(*one["k2_args"])
+        k2_same &= torch.equal(out[t], out1) and torch.equal(kend[t], kend1)
+        ch1, al1 = cc.slot_ranges(kend1, c_cap)
+        k3_one = (*one["k2_args"][:4], ch1, al1, out1, gout[t].contiguous(),
+                  c_cap, one["k2_args"][4])
+        s1 = cc.composite_bwd(*k3_one)
+        k3_ones.append(k3_one)
+        sb = slots[b * rows:(b + 1) * rows]
+        filled = s1[:, cc.GID_COL] < n_g
+        k3_same &= (torch.equal(sb[:, :cc.NGRAD], s1[:, :cc.NGRAD])
+                    and torch.equal(sb[filled, cc.GID_COL] - b * n_g,
+                                    s1[filled, cc.GID_COL])
+                    and bool((sb[~filled, cc.GID_COL] == n_cams * n_g).all()))
+        d1 = cc.composite_vjp(*one["k2_args"][:4], kend1, out1,
+                              gout[t].contiguous(), one["k2_args"][4], c_cap)
+        d_same &= torch.equal(d_batch[b * n_g:(b + 1) * n_g], d1)
+    torch.cuda.synchronize()
+    print(f"14 K2, K3, K4 at {label}, B={n_cams}: {n_cams * n_tiles} tiles "
+          f"in one launch each; images and k_end bitwise each camera's own "
+          f"K2 launch: {k2_same}; slot rows bitwise (c_cap {c_cap} a camera): "
+          f"{k3_same}; d_attrs through K3, the id sort and K4 over "
+          f"{n_cams * n_g} ids bitwise: {d_same}", flush=True)
+    check(k2_same, f"14 {label}: K2 once for the batch, images and k_end "
+          "bitwise each camera's own launch")
+    check(k3_same and d_same, f"14 {label}: K3 once for the batch, slot "
+          "rows bitwise each camera's; K4 over B*N ids, d_attrs bitwise")
+    return dict(bt=bt, k1_args=k1_args, k1_err=k1_err, out=out,
+                kend=kend, k3_args=k3_args, slots=slots, ones=ones,
+                k3_ones=k3_ones)
+
+
+def batched_kernel_entry(name, source, replaces, fn, plain_fn, err,
+                         bound, bound_by, single_fns):
+    """The ``kernels`` line's entry of a batched launch: events ms around
+    one call, back-to-back ms, the plain version's ms on the same inputs,
+    the bound, and the back-to-back ms of the cameras' own launches,
+    summed."""
+    ms = cuda_ms(fn, reps=10, warmup=2)
+    b2b, host = back_to_back_ms(fn)
+    plain_ms = cuda_ms(plain_fn, reps=1, warmup=1)
+    singles = sum(back_to_back_ms(f)[0] for f in single_fns)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "back_to_back_ms": b2b, "host_ms": host,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "singles_back_to_back_ms": singles}
+
+
+def batched_path(room, room_200k, waypoint, card) -> dict:
+    """Phase 14, the camera-batched path (see the module docstring). Returns
+    the batched entries of the ``kernels`` line, their launches counted over
+    the batched calls of 14b-14e."""
+    import numpy as np
+    import torch
+    from sage3d_tpu_torch.env.rollout import rollout, rollout_batch
+    from sage3d_tpu_torch.ops import binning, collision, composite_cuda as cc
+    from sage3d_tpu_torch.ops import segreduce
+    from sage3d_tpu_torch.parallel import train
+    from sage3d_tpu_torch.parallel import trainer as tr
+    from sage3d_tpu_torch.physics.occupancy import grid_from_mask
+    from sage3d_tpu_torch.renderer.camera import (agent_camera, make_camera,
+                                                  stack_cameras,
+                                                  unstack_cameras)
+    from sage3d_tpu_torch.renderer.render import (autotune_poses,
+                                                  budget_kwargs, render,
+                                                  render_batch)
+    from sage3d_tpu_torch.renderer.scene import importance_subset
+
+    dev = room.device
+    width, height = FRAME_A[1], FRAME_A[2]
+    cams_a = [make_camera(width=width, height=height, **{
+        **BENCH_CAM, "position": [BENCH_CAM["position"][0] + i
+                                  * SHARD_CAM_OFFSET,
+                                  *BENCH_CAM["position"][1:]]}, device=dev)
+        for i in range(BATCH_CAMS_A)]
+    stacked_a = stack_cameras(cams_a)
+    t0 = time.perf_counter()
+    budgets_a = autotune_poses(room, stacked_a, pair_margin=1.5,
+                               grad_margin=1.5)
+    bk_a = budget_kwargs(budgets_a)
+    print(f"14 budgets at frame a, B={BATCH_CAMS_A} (autotune_poses, one "
+          f"batched probe, {time.perf_counter() - t0:.2f} s): "
+          f"{json.dumps(budgets_a)}", flush=True)
+
+    # 14a. the kernels, batched against single-camera launches ---------------
+    fa = kernels_batched_vs_single(room, cams_a, bk_a, "frame a")
+    bt, plan = fa["bt"], fa["bt"]["plan"]
+    n_tiles = bt["n_tiles"]
+    k1_args, k2_args, k3_args = fa["k1_args"], bt["k2_args"], fa["k3_args"]
+    pg, start, count = k2_args[1:4]
+    kept = int(bt["bins"].n_pairs.sum())
+    n_live_g = int((plan.offsets[1:] > plan.offsets[:-1]).sum())
+    k1_bytes = (plan.offsets.numel() * 8 + n_live_g * 10 * 4
+                + kept * ((4 if plan.mult else 8) + 4))
+    k1_ops = plan.n_live * K1_OPS_PER_SLOT
+    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S) * 1e3
+    k1_by = ("bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / FP32_OPS_PER_S
+             else "operations")
+    n_t = start.shape[0]
+    walked, n_read = walked_pairs(pg, start, count, fa["kend"])
+    k2_bytes = (n_read * 11 * 4 + int(walked.sum()) * 4 + n_t * 8
+                + n_t * cc.NCH * cc.NPIX * 4 + n_t * 4)
+    k2_evals = float(walked.double().sum()) * cc.NPIX
+    k2_hits = alpha_hits(bt["attrs"], pg, start, count, k2_args[4],
+                         fa["kend"], n_tiles)
+    k2_bound, k2_by = ops_bound(k2_bytes, k2_evals, K2_OPS_PER_EVAL, k2_hits,
+                                K2_OPS_PER_HIT)
+    allowed = k3_args[5]
+    walked3, n_read3 = walked_pairs(pg, start, count, allowed)
+    n_w3 = int(walked3.sum())
+    k3_bytes = (n_read3 * 12 * 4 + n_w3 * 4 + 2 * n_t * 6 * cc.NPIX * 4
+                + n_w3 * cc.NFEAT * 4)
+    k3_hits = alpha_hits(bt["attrs"], pg, start, count, k2_args[4], allowed,
+                         n_tiles)
+    k3_bound, k3_by = ops_bound(k3_bytes, float(walked3.double().sum())
+                                * cc.NPIX, K3_OPS_PER_EVAL, k3_hits,
+                                K3_OPS_PER_HIT)
+    out_p, _ = cc.composite_fwd_plain(*k2_args, cam_tiles=n_tiles)
+    k2_err = max(float((fa["out"][:, ch] - out_p[:, ch]).abs().max())
+                 for ch in (0, 1, 2, 4, 5))
+    del out_p
+    slots_p = cc.composite_bwd_plain(*k3_args, cam_tiles=n_tiles)
+    k3_err = max(float((fa["slots"][:, ch] - slots_p[:, ch]).abs().max())
+                 for ch in range(cc.NGRAD))
+    k3_rel = max(float((fa["slots"][:, ch] - slots_p[:, ch]).abs().max())
+                 / max(float(slots_p[:, ch].abs().max()), 1e-30)
+                 for ch in range(cc.NGRAD))
+    del slots_p
+    print(f"14 batched K3 vs plain on the batch: max_abs {k3_err:.3e}, max "
+          f"over channels of max_abs / max|plain| {k3_rel:.3e}", flush=True)
+    check(k3_rel <= K3_REL, f"14 frame a: batched K3 within {K3_REL} x "
+          "channel max of its plain version on the batch")
+    check(k2_err <= K2_ATOL, f"14 frame a: batched K2 within {K2_ATOL} of "
+          "its plain version on the batch")
+    ones = fa["ones"]
+    entries = [
+        batched_kernel_entry(
+            f"K1 emit_tile_pairs, batched (B={BATCH_CAMS_A} at frame a)",
+            "sage3d_tpu_torch/csrc/emit.cu", "sage3d_tpu/ops/binning.py:153",
+            lambda: binning.emit_tile_pairs(*k1_args, plan.mult),
+            lambda: binning.emit_tile_pairs_plain(*k1_args, plan.mult),
+            fa["k1_err"], k1_bound, k1_by,
+            [lambda p=o["plan"]: binning.emit_tile_pairs(
+                p.table, p.offsets, p.n_live, p.tiles_x, p.mult)
+             for o in ones]),
+        batched_kernel_entry(
+            f"K2 composite_fwd, batched (B={BATCH_CAMS_A} at frame a)",
+            "sage3d_tpu_torch/csrc/composite_fwd.cu",
+            "sage3d_tpu/ops/composite_pallas.py:156",
+            lambda: cc.composite_fwd(*k2_args, cam_tiles=n_tiles),
+            lambda: cc.composite_fwd_plain(*k2_args, cam_tiles=n_tiles),
+            k2_err, k2_bound, k2_by,
+            [lambda a=o["k2_args"]: cc.composite_fwd(*a) for o in ones]),
+        batched_kernel_entry(
+            f"K3 composite_bwd, batched (B={BATCH_CAMS_A} at frame a)",
+            "sage3d_tpu_torch/csrc/composite_bwd.cu",
+            "sage3d_tpu/ops/composite_pallas.py:249",
+            lambda: cc.composite_bwd(*k3_args, cam_tiles=n_tiles),
+            lambda: cc.composite_bwd_plain(*k3_args, cam_tiles=n_tiles),
+            k3_err, k3_bound, k3_by,
+            [lambda a=a: cc.composite_bwd(*a) for a in fa["k3_ones"]]),
+    ]
+    for e in entries:
+        print(f"14 {e['name']} {card}: {e['ms']:.3f} ms (events), "
+              f"{e['back_to_back_ms']:.3f} back to back (the cameras' own "
+              f"launches: {e['singles_back_to_back_ms']:.3f}), host "
+              f"{e['host_ms']:.3f}, plain {e['plain_ms']:.3f}, bound "
+              f"{e['bound_ms']:.4f} ({e['bound_by']}), max |err| vs plain "
+              f"{e['max_abs_err']}", flush=True)
+    del fa, bt, ones, k2_args, k3_args
+
+    kernels = (binning.emit_tile_pairs, cc.composite_fwd, cc.composite_bwd,
+               segreduce.segment_reduce_sorted, collision.capsule_best)
+    for k in kernels:
+        k.launches = 0
+    total = [0] * len(kernels)
+
+    def counted(fn, batched: bool):
+        """``fn``'s launches; a batched call's join the batched rows'."""
+        out, n = launches_of(kernels, fn)
+        if batched:
+            for i, v in enumerate(n):
+                total[i] += v
+        return out, n
+
+    def render_paths(scene, cams, bk, label):
+        """One batch through both paths: launches, host syncs, bitwise
+        outputs, ms (events, median of 5), device busy and idle share."""
+        res = {}
+        with torch.no_grad():
+            for seq in (False, True):
+                fn = lambda: render_batch(scene, cams, sequential=seq, **bk)
+                (out, syncs), n = counted(lambda: counting_syncs(fn),
+                                          batched=not seq)
+                ms = cuda_ms(fn, reps=5, warmup=1)
+                busy, n_ops, _ = device_busy(fn, reps=2)
+                res[seq] = (out, n, syncs, ms, busy, n_ops)
+        b_cams = cams.position.shape[0]
+        same = all(torch.equal(res[False][0][k], res[True][0][k]) for k in
+                   ("rgb", "depth", "alpha", "semantic", "trans", "overflow",
+                    "grad_chunks"))
+        for seq, name in ((False, "batched"), (True, "sequential")):
+            _, n, syncs, ms, busy, n_ops = res[seq]
+            print(f"14 {label}, B={b_cams}, {name} {card}: {ms:.3f} ms a "
+                  f"batch, {b_cams * 1e3 / ms:.2f} frames/s, launches K1 "
+                  f"{n[0]} K2 {n[1]}, {syncs} host syncs, device busy "
+                  f"{busy:.3f} ms, idle share {1 - busy / ms:.3f}, "
+                  f"{n_ops:.0f} kernels and copies", flush=True)
+        out, n, syncs = res[False][:3]
+        check(n[:2] == [1, 1] and syncs <= BATCH_SYNCS_MAX,
+              f"14 {label}: a batch launches K1 and K2 once, with at most "
+              f"{BATCH_SYNCS_MAX} host syncs")
+        check(same and int(out["overflow"].sum()) == 0,
+              f"14 {label}: the batched render is bitwise the sequential "
+              "one, overflow 0")
+        return res
+
+    # 14b. frame a through render_batch, both paths ---------------------------
+    render_paths(room, stacked_a, bk_a, "frame a")
+
+    # 14c. cell i: a waypoint batch of 8 at 1024x768 --------------------------
+    wp_cams, wp_bk = waypoint
+    kernels_batched_vs_single(room, unstack_cameras(wp_cams), wp_bk,
+                              "the waypoint batch")
+    render_paths(room, wp_cams, wp_bk, "waypoint batch (cell i)")
+
+    # 14d. the lockstep rollout at B = 8 on the 1M room -----------------------
+    mask = np.zeros((200, 200), np.uint8)
+    mask[:2, :] = mask[-2:, :] = 1
+    mask[:, :2] = mask[:, -2:] = 1
+    grid = grid_from_mask(mask, bounds=[-5.0, 5.0, -5.0, 5.0])
+    rng = np.random.default_rng(14)
+    starts = rng.uniform(-3.5, 3.5, (BATCH_ROLL_B, 2)).astype(np.float32)
+    yaws = rng.uniform(-np.pi, np.pi, BATCH_ROLL_B).astype(np.float32)
+    goals = -starts
+    # Budgets over the probe poses and a 1 m grid of poses inside the walls
+    # at 8 headings: the agents walk anywhere (through the objects too).
+    grid_xy = np.arange(-4.0, 4.01, 1.0)
+    poses = probe_poses(room) + [
+        ((float(x), float(y)), float(w)) for x in grid_xy for y in grid_xy
+        for w in np.arange(8) * np.pi / 4]
+    roll_budgets = autotune_groups(room, stack_cameras([
+        agent_camera(xy, w, width=NAV_W, height=NAV_H, device=dev)
+        for xy, w in poses]), "14d", card, pair_margin=2.0)
+    roll_bk = budget_kwargs(roll_budgets)
+    print(f"14 rollout budgets (autotune_poses over {len(poses)} poses, "
+          f"pair_margin 2.0): {json.dumps(roll_budgets)}", flush=True)
+    kw = dict(n_steps=BATCH_ROLL_STEPS, width=NAV_W, height=NAV_H, **roll_bk)
+    rollout_batch(room, grid, starts, yaws, goals, **{**kw, "n_steps": 2})
+    runs = {}
+    for mode in ("vmap", "map"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[mode] = counted(lambda: rollout_batch(
+            room, grid, starts, yaws, goals, batch_mode=mode, **kw),
+            batched=mode == "vmap")
+        torch.cuda.synchronize()
+        runs[mode] += (time.perf_counter() - t0,)
+    singles = []
+    for b in range(BATCH_ROLL_B):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = rollout(room, grid, starts[b], yaws[b], goals[b], **kw)
+        torch.cuda.synchronize()
+        singles.append((one, time.perf_counter() - t0))
+    steps = BATCH_ROLL_B * BATCH_ROLL_STEPS
+    single_rate = BATCH_ROLL_STEPS / statistics.median(t for _, t in singles)
+    busy, n_ops, _ = device_busy(lambda: rollout_batch(
+        room, grid, starts, yaws, goals, **kw), reps=1)
+    busy, n_ops = busy / BATCH_ROLL_STEPS, n_ops / BATCH_ROLL_STEPS
+    for mode, (out, n, wall) in runs.items():
+        same = all(torch.equal(out[k][b], singles[b][0][k])
+                   for b in range(BATCH_ROLL_B) for k in out)
+        extra = (f", device busy {busy:.3f} ms a lockstep step, idle "
+                 f"share {1 - busy / (wall * 1e3 / BATCH_ROLL_STEPS):.3f}, "
+                 f"{n_ops:.0f} kernels and copies a step"
+                 if mode == "vmap" else "")
+        print(f"14 rollout_batch {mode}, B={BATCH_ROLL_B}, {BATCH_ROLL_STEPS} "
+              f"steps at {NAV_W}x{NAV_H} on the 1M room {card}: "
+              f"{steps / wall:.2f} env-steps/s aggregate "
+              f"({wall * 1e3 / BATCH_ROLL_STEPS:.3f} ms a step of all "
+              f"agents; one episode "
+              f"alone {single_rate:.2f} env-steps/s), launches K1 {n[0]} K2 "
+              f"{n[1]} K6 {n[4]}, overflow {out['total_overflow'].tolist()}, "
+              f"collisions {out['total_collisions'].tolist()}, bitwise the "
+              f"single rollouts: {same}{extra}", flush=True)
+        per_step = 1 if mode == "vmap" else BATCH_ROLL_B
+        check(same and int(out["total_overflow"].sum()) == 0,
+              f"14 rollout_batch {mode}: every episode bitwise its single "
+              "rollout, overflow 0")
+        check(n[0] == n[1] == n[4] == per_step * BATCH_ROLL_STEPS,
+              f"14 rollout_batch {mode}: K1, K2 and K6 {per_step} a step")
+    del runs, singles
+
+    # 14e. the train step over a camera batch, against the per-camera loop ----
+    def loop_step(state, cams, targets, template, bk, adc=False):
+        """The step as the port took it before this phase's path: render
+        and backpropagate camera by camera, then Adam."""
+        opt = state.opt_state
+        opt.zero_grad(set_to_none=True)
+        scene = train.with_params(template, state.params)
+        n_px = targets.numel()
+        total = 0.0
+        for cam, tgt in zip(unstack_cameras(cams), targets):
+            err = torch.sum((render(scene, cam, backend="cuda", **bk)["rgb"]
+                             - tgt) ** 2)
+            (err / n_px).backward()
+            total = total + err.detach()
+        if adc:
+            torch.linalg.vector_norm(state.params["means"].grad, dim=-1)
+        opt.step()
+        return total / n_px
+
+    def step_paths(template, cams, targets, bk, label, adc=False):
+        opt = train.make_group_optimizer()
+        step_fn, _ = train.make_train_step(template, unstack_cameras(cams)[0],
+                                           optimizer=opt, backend="cuda",
+                                           **bk)
+        run = step_fn.adc if adc else step_fn
+        st = train.init_train_state(template, opt)
+        ref = train.init_train_state(template, opt)
+        (_, loss, *_), n = counted(lambda: run(st, cams, targets),
+                                   batched=True)
+        want = loop_step(ref, cams, targets, template, bk)
+        worst = max(float((st.params[k].grad - ref.params[k].grad).abs()
+                          .max()) / max(float(ref.params[k].grad.abs()
+                                              .max()), 1e-30)
+                    for k in TRAINABLE)
+        loss_rel = abs(float(loss) - float(want)) / abs(float(want))
+        res = {}
+        for name, fn in (("batched", lambda: run(st, cams, targets)),
+                         ("loop", lambda: loop_step(ref, cams, targets,
+                                                    template, bk, adc))):
+            reset_peak_memory()
+            held = torch.cuda.memory_allocated()
+            ms = cuda_ms(fn, reps=5, warmup=1)
+            peak = torch.cuda.max_memory_allocated()
+            busy, n_ops, top = device_busy(fn, reps=2, n_top=12)
+            k3 = sum(t[1] for t in top if "composite_bwd" in t[0])
+            res[name] = (ms, busy, k3, peak, held)
+            print(f"14 {label} step, B={cams.position.shape[0]}, {name} "
+                  f"{card}: {ms:.3f} ms (events, median of 5), device busy "
+                  f"{busy:.3f} ms, idle share {1 - busy / ms:.3f}, "
+                  f"{n_ops:.0f} kernels and copies, K3 {k3:.3f} ms a step "
+                  f"({k3 / cams.position.shape[0]:.3f} a view), peak device "
+                  f"memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} held "
+                  f"before)", flush=True)
+        print(f"14 {label}: batched vs per-camera loop, loss "
+              f"{float(loss):.6e} vs {float(want):.6e} (relative "
+              f"{loss_rel:.2e}), gradients max over groups of max |diff| / "
+              f"max |grad| {worst:.2e}; launches K1 {n[0]} K2 {n[1]} K3 "
+              f"{n[2]} K4 {n[3]}", flush=True)
+        check(n[:4] == [1, 1, 1, 1], f"14 {label}: the batched step launches "
+              "K1, K2, K3 and K4 once each")
+        check(loss_rel <= BATCH_LOSS_REL and worst <= BATCH_GRAD_REL,
+              f"14 {label}: batched step within {BATCH_LOSS_REL} (loss) and "
+              f"{BATCH_GRAD_REL} (gradients) of the per-camera loop")
+        return res
+
+    with torch.no_grad():
+        targets_a = render_batch(room, stacked_a, **bk_a)["rgb"]
+    noisy = _noisy(room)
+    step_paths(noisy, stacked_a, targets_a, bk_a, "train (frame a)")
+    # peak memory of the 1080p/1M step at one camera, beside the two above
+    one_cam = stack_cameras(cams_a[:1])
+    opt = train.make_group_optimizer()
+    step1, _ = train.make_train_step(noisy, cams_a[0], optimizer=opt,
+                                     backend="cuda", **bk_a)
+    st1 = train.init_train_state(noisy, opt)
+    step1(st1, one_cam, targets_a[:1])
+    reset_peak_memory()
+    held = torch.cuda.memory_allocated()
+    step1(st1, one_cam, targets_a[:1])
+    torch.cuda.synchronize()
+    print(f"14 train (frame a) step, B=1 {card}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} held before)", flush=True)
+    del st1, step1, targets_a, noisy
+
+    views = []
+    for i in range(ADC_VIEWS):
+        ang = 2 * np.pi * i / ADC_VIEWS + np.pi / 4
+        views.append(make_camera(
+            [3.0 * np.cos(ang), 3.0 * np.sin(ang), 1.4],
+            [-np.cos(ang), -np.sin(ang), -0.1], width=ADC_W, height=ADC_H,
+            device=dev))
+    adc_cams = stack_cameras(views)
+    adc_bk = budget_kwargs(autotune_poses(room_200k, adc_cams,
+                                          pair_margin=1.5))
+    with torch.no_grad():
+        adc_targets = render_batch(room_200k, adc_cams, **adc_bk)["rgb"]
+    start = tr.with_capacity(importance_subset(room_200k, ADC_START), ADC_N)
+    step_paths(start, adc_cams, adc_targets, adc_bk, "ADC (cell adc)",
+               adc=True)
+
+    for e, i in zip(entries, range(3)):
+        e["launches"] = total[i]
+    print(f"14 launches of the batched calls of 14b-14e (the sequential "
+          f"renders and the map rollout apart): K1 {total[0]} K2 {total[1]} "
+          f"K3 {total[2]} K4 {total[3]} K6 {total[4]}", flush=True)
+    return entries
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -2806,13 +3431,11 @@ def main() -> int:
     # 5. the main path ----------------------------------------------------------
     launches = {"emit": 0, "composite_fwd": 0}
     outs = {}
-    script_peak = 0
     for key, (scene, cam) in frames.items():
         bk = budget_kwargs(budgets[key])
         if key == "b_4k_1M":   # the frame's own peak, beside the script's
             torch.cuda.synchronize()
-            script_peak = torch.cuda.max_memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak_memory()
             held = torch.cuda.memory_allocated()
         binning.emit_tile_pairs.launches = 0
         composite_cuda.composite_fwd.launches = 0
@@ -3428,7 +4051,8 @@ def main() -> int:
     check(probe_launches > 0, "the anatomy run launched the probe kernel")
 
     # 9. the navigation path --------------------------------------------------------
-    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
+    peaks = {"1-8": phase_peak()}     # each phase's peak device memory
+    begin_phase_peak()
     t0 = time.perf_counter()
     launches_nav, nav_peak, nav_budgets, k6 = navigation(
         frames["a_1080p_1M"][0], card)
@@ -3436,39 +4060,57 @@ def main() -> int:
           f"launches K1 {launches_nav[0]} K2 {launches_nav[1]} K6 "
           f"{launches_nav[2]}, peak device "
           f"memory {nav_peak / 2**30:.2f} GiB", flush=True)
-    script_peak = max(script_peak, nav_peak)
+    peaks["9"] = phase_peak()
 
     # 10. the data path -------------------------------------------------------------
+    begin_phase_peak()
     t0 = time.perf_counter()
-    launches_data, k5 = data_path(frames["a_1080p_1M"][0],
+    launches_data, k5, waypoint = data_path(frames["a_1080p_1M"][0],
                                   frames["c_env_640x480_200k"][0], card)
     print(f"data phase {card}: {time.perf_counter() - t0:.1f} s, launches "
           f"K1 {launches_data[0]} K2 {launches_data[1]} K5 "
           f"{k5['launches']}", flush=True)
-    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
+    peaks["10"] = phase_peak()
 
     # 11. serving ---------------------------------------------------------------------
+    begin_phase_peak()
     t0 = time.perf_counter()
     launches_serve = serving(frames["a_1080p_1M"][0], cam_a, nav_budgets, card)
     print(f"serving phase {card}: {time.perf_counter() - t0:.1f} s, launches "
           f"K1 {launches_serve[0]} K2 {launches_serve[1]}", flush=True)
-    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
+    peaks["11"] = phase_peak()
 
     # 12. ADC training ----------------------------------------------------------------
+    begin_phase_peak()
     t0 = time.perf_counter()
     launches_adc = adc_training(frames["c_env_640x480_200k"][0], card)
     print(f"ADC phase {card}: {time.perf_counter() - t0:.1f} s, launches "
           f"{json.dumps(launches_adc)}", flush=True)
-    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
-    print(f"peak device memory {card}: {script_peak / 2**30:.2f} GiB for the "
-          f"script, {peak_b / 2**30:.2f} GiB at frame b's render", flush=True)
+    peaks["12"] = phase_peak()
 
-    # 13. the sharded path --------------------------------------------------------------
+    # 13. the sharded path (its ranks are processes of their own) ----------------------
+    begin_phase_peak()
     t0 = time.perf_counter()
     launches_mesh = sharded_path(outs["a_1080p_1M"], kend_k,
                                  budgets["a_1080p_1M"], budgets_train, card)
     print(f"sharded phase {card}: {time.perf_counter() - t0:.1f} s, launches "
           f"summed over the ranks {json.dumps(launches_mesh)}", flush=True)
+    peaks["13"] = phase_peak()
+
+    # 14. the camera-batched path -----------------------------------------------
+    begin_phase_peak()
+    t0 = time.perf_counter()
+    batched_entries = batched_path(frames["a_1080p_1M"][0],
+                                   frames["c_env_640x480_200k"][0], waypoint,
+                                   card)
+    print(f"batched phase {card}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    peaks["14"] = phase_peak()
+    print(f"peak device memory {card}: "
+          f"{max(peaks.values()) / 2**30:.2f} GiB for the script's process "
+          f"(phase 13's ranks apart), {peak_b / 2**30:.2f} GiB at frame b's "
+          f"render; by phase, GiB: " + ", ".join(
+              f"{k} {v / 2**30:.2f}" for k, v in peaks.items()), flush=True)
 
     kernels = [
         {"name": "K1 emit_tile_pairs", "route": "cuda",
@@ -3546,6 +4188,7 @@ def main() -> int:
          "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
          "b64_back_to_back_ms": k6["b64_back_to_back_ms"],
          "b64_bound_ms": k6["b64_bound_ms"], "library_ms": None},
+        *batched_entries,
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel of the path launched on the main path")

@@ -10,7 +10,8 @@ against that room (the many- and few-query schedules). Card only:
 (the kernels named, all five by default). ``--tree PATH`` adds the K2 of
 another checkout (e.g. the parent commit unpacked with ``git archive``) as
 one more variant of K2: held bitwise to the K2 built here and timed beside
-it in the same call. For K6 it imports that checkout's ``ops/collision.py``
+it in the same call (a checkout whose K2 takes ``cam_tiles``, the tiles of
+one camera of a batch, as this one's does). For K6 it imports that checkout's ``ops/collision.py``
 as a package of its own (``tree_collision``; its C interface may differ):
 its K6 at each B, held bitwise to the K6 built here, and the dense query
 at B = 1 and 64 and the pruned one at B = 1 through both checkouts' entry
@@ -250,7 +251,8 @@ def _k2_call(lib, k2_args):
     err = _build.launch(
         lib.sage3d_composite_fwd, attrs.device, attrs.data_ptr(),
         pg.data_ptr(), start.data_ptr(), count.data_ptr(), out.data_ptr(),
-        kend.data_ptr(), n_tiles, tiles_x, attrs.shape[0], pg.shape[0])
+        kend.data_ptr(), n_tiles, tiles_x, n_tiles, attrs.shape[0],
+        pg.shape[0])
     _build.check(err, "composite_fwd variant")
     return out, kend
 
@@ -262,7 +264,8 @@ def _k3_call(lib, k3_args):
         lib.sage3d_composite_bwd, attrs.device, attrs.data_ptr(),
         pg.data_ptr(), start.data_ptr(), count.data_ptr(), chunk0.data_ptr(),
         allowed.data_ptr(), out.data_ptr(), gout.data_ptr(), slots.data_ptr(),
-        start.shape[0], tiles_x, attrs.shape[0], pg.shape[0], c_cap)
+        start.shape[0], tiles_x, start.shape[0], attrs.shape[0], pg.shape[0],
+        c_cap)
     _build.check(err, "composite_bwd variant")
     return slots
 

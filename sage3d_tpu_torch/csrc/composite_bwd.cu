@@ -18,6 +18,10 @@
 // fills the buffer with zero payload and the out-of-range id n_gauss, which
 // rows of lanes past a chunk's last pair and of slots past the tile's allowed
 // chunks keep: the sort puts them last and the segment sum skips them.
+// A batch of cameras is one launch over B * cam_tiles camera-major tiles and
+// an attribute table of B * N rows, as in K2: the tile's pixel origin comes
+// from its index within its camera, and chunk0 places each camera's slots
+// (the caller starts camera b's at its own base).
 //
 // The stop must be the forward's: the transmittance is replayed with K2's
 // operations in K2's order (the same tile-local coefficients and power
@@ -153,8 +157,8 @@ composite_bwd_kernel(const float* __restrict__ attrs,
                      const int32_t* __restrict__ allowed,
                      const float* __restrict__ fwd,
                      const float* __restrict__ gout,
-                     float* __restrict__ slots, int tiles_x, int n_gauss,
-                     int n_pairs, int c_cap) {
+                     float* __restrict__ slots, int tiles_x, int cam_tiles,
+                     int n_gauss, int n_pairs, int c_cap) {
   extern __shared__ float4 smem[];
   Coef* coef = reinterpret_cast<Coef*>(smem);                     // [2][kChunk]
   float* part = reinterpret_cast<float*>(coef + 2 * kChunk);  // [2][kWarps][kChunk][kNgrad]
@@ -162,8 +166,11 @@ composite_bwd_kernel(const float* __restrict__ attrs,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float ox = (float)((t % tiles_x) * kTile);
-  const float oy = (float)((t / tiles_x) * kTile);
+  // The tile's pixel origin within its camera: a batch of cameras is
+  // B * cam_tiles camera-major tiles.
+  const int tc = t % cam_tiles;
+  const float ox = (float)((tc % tiles_x) * kTile);
+  const float oy = (float)((tc / tiles_x) * kTile);
   const int start = tile_start[t];
   const int count = tile_count[t];
   const int n_chunks = allowed[t];
@@ -350,8 +357,9 @@ extern "C" int sage3d_composite_bwd(const void* attrs, const void* pair_gauss,
                                     const void* tile_count, const void* chunk0,
                                     const void* allowed, const void* fwd_out,
                                     const void* gout, void* slots, int n_tiles,
-                                    int tiles_x, int n_gauss, int n_pairs,
-                                    int c_cap, void* stream) {
+                                    int tiles_x, int cam_tiles, int n_gauss,
+                                    int n_pairs, int c_cap, void* stream) {
+  if (cam_tiles <= 0 || n_tiles % cam_tiles) return (int)cudaErrorInvalidValue;
   if (n_tiles > 0) {
     // Shared memory beyond 48 KB is opt-in; the largest carveout lets the
     // most blocks share an SM. Set once per device, not on every launch.
@@ -375,7 +383,8 @@ extern "C" int sage3d_composite_bwd(const void* attrs, const void* pair_gauss,
         (const float*)attrs, (const int32_t*)pair_gauss,
         (const int32_t*)tile_start, (const int32_t*)tile_count,
         (const int32_t*)chunk0, (const int32_t*)allowed, (const float*)fwd_out,
-        (const float*)gout, (float*)slots, tiles_x, n_gauss, n_pairs, c_cap);
+        (const float*)gout, (float*)slots, tiles_x, cam_tiles, n_gauss, n_pairs,
+        c_cap);
   }
   return (int)cudaGetLastError();
 }

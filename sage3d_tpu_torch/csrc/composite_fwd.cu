@@ -46,6 +46,12 @@
 // and K3 (composite_bwd.cu) replays w and T bit for bit. The TPU layout
 // workarounds (feature-major blocks, rolled two-block windows, guard blocks,
 // the (1,8,128) k_end block) are gone.
+//
+// A batch of cameras (the vmapped TPU kernel's leading grid axis) is one
+// launch of B * cam_tiles blocks over one attribute table of B * N rows
+// (camera b's Gaussian g at row b * N + g, which its pairs name): a block
+// takes its pixel origin from its tile's index within its camera, and
+// nothing else in the body depends on the camera.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,12 +131,15 @@ composite_fwd_kernel(const float* __restrict__ attrs,
                      const int32_t* __restrict__ tile_start,
                      const int32_t* __restrict__ tile_count,
                      float* __restrict__ out, int32_t* __restrict__ kend,
-                     int tiles_x, int n_gauss, int n_pairs) {
+                     int tiles_x, int cam_tiles, int n_gauss, int n_pairs) {
   __shared__ Coef coef[2][kChunk];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const float ox = (float)((t % tiles_x) * kTile);
-  const float oy = (float)((t / tiles_x) * kTile);
+  // The tile's pixel origin within its camera: a batch of cameras is
+  // B * cam_tiles camera-major tiles.
+  const int tc = t % cam_tiles;
+  const float ox = (float)((tc % tiles_x) * kTile);
+  const float oy = (float)((tc / tiles_x) * kTile);
   const int start = tile_start[t];
   const int count = tile_count[t];
   const int n_chunks = (count + kChunk - 1) / kChunk;
@@ -259,12 +268,14 @@ extern "C" int sage3d_composite_fwd(const void* attrs, const void* pair_gauss,
                                     const void* tile_start,
                                     const void* tile_count, void* out,
                                     void* kend, int n_tiles, int tiles_x,
-                                    int n_gauss, int n_pairs, void* stream) {
+                                    int cam_tiles, int n_gauss, int n_pairs,
+                                    void* stream) {
+  if (cam_tiles <= 0 || n_tiles % cam_tiles) return (int)cudaErrorInvalidValue;
   if (n_tiles > 0) {
     composite_fwd_kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)attrs, (const int32_t*)pair_gauss,
         (const int32_t*)tile_start, (const int32_t*)tile_count, (float*)out,
-        (int32_t*)kend, tiles_x, n_gauss, n_pairs);
+        (int32_t*)kend, tiles_x, cam_tiles, n_gauss, n_pairs);
   }
   return (int)cudaGetLastError();
 }

@@ -16,8 +16,13 @@
 // <= cut2 * 1.001 + 1e-3, and is 0 when the mean lies in the tile) and keeps
 // the pair if it survives: key tid * mult + rank (mult > 0, the fused int32
 // key) or (tid << 31) | rank (mult == 0, the two-key sort's int64 key), and
-// the Gaussian id. The pairs come out in no particular order: the sort after
-// the kernel orders them, and a kept key is unique per (tile, Gaussian).
+// the Gaussian id. tid is the tile's index within its camera plus the row's
+// tile base (column 11 of the table, int32 bits): a batch of B cameras is
+// one table of B*n rows, camera b's with base b*T, so one launch emits the
+// whole batch with camera-major tile ids, as the vmapped TPU kernel's batch
+// grid axis does. One camera has base 0. The pairs come out in no
+// particular order: the sort after the kernel orders them, and a kept key is
+// unique per (tile, Gaussian).
 //
 // What bounds it on an H100: operations and latency. Each live slot does
 // ~90 f32 operations; the bytes are the live Gaussians' rows, the offsets
@@ -98,14 +103,14 @@ __device__ __forceinline__ int thread_search(const int64_t* __restrict__ off,
 // three IEEE divisions, formed once per Gaussian and not once per slot.
 struct Gauss {
   float x0, y0, nxs, inv, mx, my, cut2, ca, cb, cc, inv_a, inv_c;
-  int32_t rank;
+  int32_t rank, base;
 };
 
 __device__ __forceinline__ Gauss load_gauss(const float4* __restrict__ table,
                                             int g) {
   const float4 q0 = table[3 * (size_t)g];      // x0, y0, nx, count
   const float4 q1 = table[3 * (size_t)g + 1];  // mx, my, cut2, rank bits
-  const float4 q2 = table[3 * (size_t)g + 2];  // conic a, b, c, pad
+  const float4 q2 = table[3 * (size_t)g + 2];  // conic a, b, c, tile base
   Gauss e;
   e.x0 = q0.x;
   e.y0 = q0.y;
@@ -118,6 +123,7 @@ __device__ __forceinline__ Gauss load_gauss(const float4* __restrict__ table,
   e.ca = q2.x;
   e.cb = q2.y;
   e.cc = q2.z;
+  e.base = __float_as_int(q2.w);
   e.inv_a = 1.0f / fmaxf(e.ca, 1e-20f);
   e.inv_c = 1.0f / fmaxf(e.cc, 1e-20f);
   return e;
@@ -158,7 +164,7 @@ __device__ __forceinline__ bool cull_key(float kf, const Gauss& e, int tiles_x,
   float m2 = fminf(fminf(vedge(x_lo), vedge(x_hi)),
                    fminf(hedge(y_lo), hedge(y_hi)));
   if (inside) m2 = 0.0f;
-  const int32_t tid = (int32_t)(ty * (float)tiles_x + tx);
+  const int32_t tid = (int32_t)(ty * (float)tiles_x + tx) + e.base;
   key = mult ? (int64_t)(tid * mult + e.rank)
              : (((int64_t)tid << 31) | (int64_t)e.rank);
   return m2 <= e.cut2 * 1.001f + 1e-3f;

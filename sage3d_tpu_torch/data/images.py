@@ -5,9 +5,11 @@ reference's Isaac-Sim offline render farm (generate_images.py:57-806: one
 headless Isaac process per shard, scene-hash sharding across instances, 3
 `world.step(render=True)` per frame). Here a scene's waypoint cameras are
 rendered ``batch_size`` at a time by ``render_batch`` on the scene's device:
-the ``cuda`` backend (kernels K1 and K2) on a CUDA device, ``torch`` on the
-CPU, as the env chooses. A batch holds only the chunk's own cameras (the JAX
-package pads the last one to a fixed shape for ``jit``).
+the ``cuda`` backend on a CUDA device, where a batch is one batched render
+(one launch each of K1 and K2 for its cameras, as the JAX package's vmapped
+render), ``torch`` on the CPU, as the env chooses. A batch holds only the
+chunk's own cameras (the JAX package pads the last one to a fixed shape for
+``jit``).
 
 Every frame's dropped pairs are counted: ``render_trajectory_images``
 returns their sum beside the frame paths, and ``generate_scene_images``

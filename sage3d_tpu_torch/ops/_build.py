@@ -40,20 +40,22 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 KERNELS = {
     "emit": ("emit.cu", {
-        # table, offsets, n, n_live, tiles_x, mult, keys, gauss, counter,
-        # stream
+        # table (column 11: each row's camera tile base), offsets, n,
+        # n_live, tiles_x, mult, keys, gauss, counter, stream
         "sage3d_emit_tile_pairs": [_P, _P, _I, _L, _I, _I, _P, _P, _P, _P],
     }),
     "composite_fwd": ("composite_fwd.cu", {
         # attrs, pair_gauss, tile_start, tile_count, out, kend, n_tiles,
-        # tiles_x, n_gauss, n_pairs, stream
-        "sage3d_composite_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # tiles_x, cam_tiles, n_gauss, n_pairs, stream
+        "sage3d_composite_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P],
     }),
     "composite_bwd": ("composite_bwd.cu", {
         # attrs, pair_gauss, tile_start, tile_count, chunk0, allowed, fwd_out,
-        # gout, slots, n_tiles, tiles_x, n_gauss, n_pairs, c_cap, stream
+        # gout, slots, n_tiles, tiles_x, cam_tiles, n_gauss, n_pairs, c_cap,
+        # stream
         "sage3d_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _P],
+                                 _I, _I, _I, _I, _P],
         # int* registers
         "sage3d_composite_bwd_regs": [ctypes.POINTER(ctypes.c_int)],
     }),

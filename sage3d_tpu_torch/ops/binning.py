@@ -20,6 +20,15 @@ contracts:
      ``(tile << 31) | rank`` instead.
   4. Per-tile [start, count) ranges come from a searchsorted over T queries.
 
+A stacked camera batch (``project_gaussians`` over B cameras, (B, N) fields)
+bins in one pass, the counterpart of the JAX package's vmapped binning:
+depth ranks and tier picks per camera from one argsort along the Gaussian
+axis, one K1 table of B·N rows (row b·N + g; column 11 carries camera b's
+tile base b·T), one K1 launch, one sort and two host reads for the whole
+batch. Tile ids are camera-major (b·T + tile), so the result covers B·T
+tiles; ``n_pairs`` and ``overflow`` are per camera, and each camera's tiles
+are bitwise what the camera gives alone.
+
 The JAX package gives every budgeted slot a key and sorts the whole padded
 emission array (static shapes); here only the kept pairs exist, so
 ``pair_gauss`` holds exactly ``n_pairs`` entries and the per-tile lists are
@@ -45,6 +54,8 @@ K1_DEFAULT = 16           # candidate entries per ordinary Gaussian
 M_BIG_DEFAULT = 8192      # large-spanning Gaussians given extended budgets
 K2_DEFAULT = 256          # entries per large Gaussian
 INVALID_KEY = 2**31 - 1
+PAIR_LIMIT = 1 << 31      # kept pairs of a batch: the tile bounds and the
+                          # compositor's pair indices are int32
 SUGGEST_THRESHOLDS = (4, 8, 16, 32, 64, 128)
 # the budgets dict keys that are bin_gaussians' keyword arguments
 EMIT_BUDGET_KEYS = ("k_small", "m_big", "k_big", "m_mid", "k_mid")
@@ -54,18 +65,26 @@ EMIT_GB = 1024  # the padded tier tables' columns are a multiple of this (as
 ATTR_ROWS = 16  # padded tier table rows (the JAX kernel's layout):
                 # [x0, y0, nx, count_eff, mx, my, cut2, rank(bitcast),
                 #  conic_a, conic_b, conic_c, 5 x pad]
-LIVE_COLS = 12  # K1's per-Gaussian table: columns 0-10 of those rows and a
-                # pad, three float4 a row
+LIVE_COLS = 12  # K1's per-Gaussian table: columns 0-10 of those rows and
+                # the camera's tile base (int32 bits; 0 for one camera),
+                # three float4 a row
 
 
 class TileBins(NamedTuple):
+    """Per-tile pair lists of B cameras (B = 1 for one camera): the tiles
+    are camera-major (B·T entries), ``pair_gauss`` holds rows b·N + g, and
+    ``n_pairs`` and ``overflow`` are per camera."""
     pair_gauss: torch.Tensor   # (P,) int32 gaussian index per pair, depth-ordered per tile
-    tile_start: torch.Tensor   # (T,) int32 first pair index of each tile
-    tile_count: torch.Tensor   # (T,) int32 number of pairs of each tile
-    n_pairs: torch.Tensor      # () int32 total valid pairs
-    overflow: torch.Tensor     # () int32 pairs dropped by the K1/K2/M budgets
+    tile_start: torch.Tensor   # (B·T,) int32 first pair index of each tile
+    tile_count: torch.Tensor   # (B·T,) int32 number of pairs of each tile
+    n_pairs: torch.Tensor      # (B,) int32 valid pairs of each camera
+    overflow: torch.Tensor     # (B,) int32 pairs dropped by the K1/K2/M budgets
     tiles_x: int
     tiles_y: int
+
+    @property
+    def n_cams(self) -> int:
+        return self.tile_start.shape[0] // (self.tiles_x * self.tiles_y)
 
 
 def num_tiles(width: int, height: int, tile_w: int = TILE_W,
@@ -77,10 +96,10 @@ def _tile_rect(proj: ProjectedGaussians, tiles_x: int, tiles_y: int):
     """Tight per-Gaussian tile rect from the per-axis AABB extents. Returns
     (vis, x0, y0, nx, count, mx, my)."""
     means2d = proj.means2d.detach()
-    mx = means2d[:, 0]
-    my = means2d[:, 1]
-    ex = proj.extents[:, 0].detach()
-    ey = proj.extents[:, 1].detach()
+    mx = means2d[..., 0]
+    my = means2d[..., 1]
+    ex = proj.extents[..., 0].detach()
+    ey = proj.extents[..., 1].detach()
     vis = proj.visible & (proj.radii > 0)
 
     def cell(v, size, hi):
@@ -163,7 +182,8 @@ def emit_tile_pairs_plain(table: torch.Tensor, offsets: torch.Tensor,
                           n_live: int, tiles_x: int, mult: int):
     """Plain PyTorch version of K1: live slot s is candidate
     ``s - offsets[g]`` of the Gaussian g with ``offsets[g] <= s <
-    offsets[g + 1]``; its tile and cull as ``emit_tile_keys_plain``. Returns
+    offsets[g + 1]``; its tile and cull as ``emit_tile_keys_plain``, the
+    tile offset by the row's camera tile base (column 11). Returns
     (keys, gauss int32, n_kept () int64) as ``emit_tile_pairs``, with exactly
     the kept pairs, in slot order."""
     dev = table.device
@@ -176,6 +196,7 @@ def emit_tile_pairs_plain(table: torch.Tensor, offsets: torch.Tensor,
     keep, tid = _slot_tiles(kf, *(row[:, i] for i in (0, 1, 2, 4, 5, 6, 8, 9,
                                                       10)), tiles_x)
     rank = table[:, 7].contiguous().view(torch.int32)[g]
+    tid = tid + table[:, 11].contiguous().view(torch.int32)[g]
     if mult:
         keys = tid * mult + rank
     else:
@@ -191,7 +212,9 @@ def emit_tile_pairs(table: torch.Tensor, offsets: torch.Tensor, n_live: int,
 
     ``table``: (n, LIVE_COLS) float32, contiguous and 16-byte aligned (the
     kernel reads a row as three float4): x0, y0, nx, count_eff, mx, my, cut2,
-    the int32 rank's bits, conic a, b, c, pad. ``offsets``: (n + 1,) int64,
+    the int32 rank's bits, conic a, b, c, the int32 tile base's bits (the
+    row's camera's first tile, b·T in a batch; 0 for one camera), added to
+    the tile id of every key. ``offsets``: (n + 1,) int64,
     the exclusive scan of count_eff; ``n_live`` its last entry, as a host int
     (the caller's copy; checking it would wait for the device). Keys: int32
     ``tile * mult + rank`` (``mult`` > 0) or int64 ``(tile << 31) | rank``.
@@ -249,14 +272,14 @@ class EmitTier(NamedTuple):
 
 
 class EmissionPlan(NamedTuple):
-    table: torch.Tensor      # (n, LIVE_COLS) float32, K1's per-Gaussian table
-    offsets: torch.Tensor    # (n + 1,) int64 exclusive scan of count_eff
+    table: torch.Tensor      # (B·n, LIVE_COLS) float32, K1's per-Gaussian table
+    offsets: torch.Tensor    # (B·n + 1,) int64 exclusive scan of count_eff
     n_live: int              # live slots of all tiers (offsets[-1])
-    tiers: list              # [EmitTier]: small, (mid,) big
+    tiers: list              # [EmitTier]: small, (mid,) big; rows b·n + g
     tiles_x: int
     tiles_y: int
     mult: int                # 2^rank_bits for the fused key, 0 for two keys
-    overflow: torch.Tensor   # () int64 pairs dropped by the budgets
+    overflow: torch.Tensor   # (B,) int64 pairs dropped by the budgets
 
 
 def padded_tier(plan: EmissionPlan, tier: EmitTier):
@@ -294,23 +317,33 @@ def emission_plan(
 ) -> EmissionPlan:
     """Everything ``bin_gaussians`` hands to K1: depth ranks, the tight tile
     rects, the tier selection, the per-Gaussian table and live-slot offsets,
-    and the overflow count. Reads the number of live slots to the host."""
+    and the overflow count. Reads the number of live slots to the host.
+
+    ``proj`` of a batch of B cameras ((B, N, ...) fields; one camera's
+    (N, ...) fields are a batch of 1): ranks and tier picks are per camera,
+    the budgets apply to each camera, and the table holds B·N rows (row
+    b·N + g) with camera b's tile base b·T in column 11. One host read for
+    the whole batch."""
+    if proj.depths.dim() == 1:
+        proj = ProjectedGaussians(*(x[None] for x in proj))
     dev = proj.depths.device
     tiles_x, tiles_y = num_tiles(width, height)
     n_tiles = tiles_x * tiles_y
-    n = proj.depths.shape[0]
-    rank_bits = min(((2**31 - 1) // max(n_tiles, 1)).bit_length() - 1, 31)
+    n_cams, n = proj.depths.shape
+    # The fused key holds (base + tile) * 2^rank_bits + rank in int32.
+    all_tiles = max(n_cams * n_tiles, 1)
+    rank_bits = min(((2**31 - 1) // all_tiles).bit_length() - 1, 31)
     fused_ok = rank_bits >= RANK_BITS and n <= (1 << rank_bits)
     m_big = max(min(m_big, n), 1)
 
     depths = proj.depths.detach()
-    inf = torch.tensor(float("inf"), device=dev)
 
-    # 1. Depth ranks (front-to-back, ties by index): the inverse of a stable
-    # argsort.
-    order = torch.argsort(torch.where(proj.visible, depths, inf), stable=True)
+    # 1. Depth ranks per camera (front-to-back, ties by index): the inverse
+    # of a stable argsort along the Gaussians.
+    order = torch.argsort(torch.where(proj.visible, depths, float("inf")),
+                          dim=1, stable=True)
     rank = torch.empty_like(order)
-    rank[order] = torch.arange(n, device=dev)
+    rank.scatter_(1, order, torch.arange(n, device=dev).expand(n_cams, n))
     rank = rank.to(torch.int32)
 
     # 2. Tile rect per Gaussian.
@@ -320,59 +353,71 @@ def emission_plan(
     use_mid = m_mid > 0 and k_mid > k_small
     m_mid = max(min(m_mid, n), 1) if use_mid else 1
 
-    # Large spanners: top m_big by count (stable, ties by index).
+    # Large spanners: top m_big by count per camera (stable, ties by index).
     big_floor = k_mid if use_mid else k_small
     big_score = torch.where(vis & (count > big_floor), count, -1)
-    big_idx = torch.argsort(-big_score, stable=True)[:m_big]
-    big_sel = big_score[big_idx] > 0
+    big_idx = torch.argsort(-big_score, dim=1, stable=True)[:, :m_big]
+    big_sel = torch.gather(big_score, 1, big_idx) > 0
     if use_mid:
         mid_score = torch.where(vis & ~small & (count <= k_mid), count, -1)
-        mid_idx = torch.argsort(-mid_score, stable=True)[:m_mid]
-        mid_sel = mid_score[mid_idx] > 0
+        mid_idx = torch.argsort(-mid_score, dim=1, stable=True)[:, :m_mid]
+        mid_sel = torch.gather(mid_score, 1, mid_idx) > 0
 
     # The tiers' live slots. They split the Gaussians by count (small:
     # count <= k_small; mid: k_small < count <= k_mid; big: above), so a
-    # Gaussian is live in one tier at most and count_eff adds them up.
+    # Gaussian is live in one tier at most and count_eff adds them up. The
+    # tiers name table rows: camera b's Gaussian g is row b·n + g.
     count64 = count.to(torch.int64)
-    tiers = [EmitTier(torch.arange(n, device=dev),
-                      torch.where(vis & small, count64, 0), k_small)]
+    row0 = torch.arange(n_cams, device=dev)[:, None] * n
+
+    def tier(idx, sel, cnt, k_budget):
+        return EmitTier((idx + row0).reshape(-1),
+                        torch.where(sel, cnt, 0).reshape(-1), k_budget)
+
+    tiers = [tier(torch.arange(n, device=dev).expand(n_cams, n), vis & small,
+                  count64, k_small)]
     if use_mid:
-        tiers.append(EmitTier(mid_idx, torch.where(mid_sel, count64[mid_idx],
-                                                   0), k_mid))
-    tiers.append(EmitTier(big_idx, torch.where(
-        big_sel, torch.clamp(count64[big_idx], max=k_big), 0), k_big))
+        tiers.append(tier(mid_idx, mid_sel, torch.gather(count64, 1, mid_idx),
+                          k_mid))
+    count_b = torch.gather(count64, 1, big_idx)
+    tiers.append(tier(big_idx, big_sel, torch.clamp(count_b, max=k_big),
+                      k_big))
     count_eff = tiers[0].count.clone()
     for t in tiers[1:]:
         count_eff.index_add_(0, t.gauss, t.count)
-    offsets = torch.zeros((n + 1,), dtype=torch.int64, device=dev)
+    offsets = torch.zeros((n_cams * n + 1,), dtype=torch.int64, device=dev)
     offsets[1:] = torch.cumsum(count_eff, 0)
 
-    # K1's (n, LIVE_COLS) table; the int32 rank rides it as its bit
-    # pattern. cut2 is the opacity-aware alpha cutoff the exact ellipse cull
-    # tests against.
+    # K1's (B·n, LIVE_COLS) table; the int32 rank and tile base ride it as
+    # their bit patterns. cut2 is the opacity-aware alpha cutoff the exact
+    # ellipse cull tests against.
     cut2 = 2.0 * torch.log(
         torch.clamp(proj.opacities.detach(), min=ALPHA_MIN) / ALPHA_MIN)
     conics = proj.conics.detach()
+    base = (torch.arange(n_cams, dtype=torch.int32, device=dev)[:, None]
+            * n_tiles).expand(n_cams, n)
     table = torch.stack([
         x0.to(torch.float32), y0.to(torch.float32), nx.to(torch.float32),
-        count_eff.to(torch.float32), mx, my, cut2, rank.view(torch.float32),
-        conics[:, 0], conics[:, 1], conics[:, 2], torch.zeros_like(mx),
-    ], dim=1)
+        count_eff.view(n_cams, n).to(torch.float32), mx, my, cut2,
+        rank.view(torch.float32), conics[..., 0], conics[..., 1],
+        conics[..., 2], base.contiguous().view(torch.float32),
+    ], dim=-1).reshape(n_cams * n, LIVE_COLS)
 
-    # Overflow accounting (conservative: AABB counts, pre-cull): big Gaussians
-    # clipped at k_big, plus spanners not covered by the big or mid tier.
-    count_b = count64[big_idx]
-    clipped_big = torch.sum(torch.where(big_sel,
-                                        torch.clamp(count_b - k_big, min=0), 0))
-    covered = torch.sum(torch.where(big_sel, count_b, 0))
+    # Overflow accounting per camera (conservative: AABB counts, pre-cull):
+    # big Gaussians clipped at k_big, plus spanners not covered by the big
+    # or mid tier.
+    clipped_big = torch.sum(torch.where(
+        big_sel, torch.clamp(count_b - k_big, min=0), 0), dim=1)
+    covered = torch.sum(torch.where(big_sel, count_b, 0), dim=1)
     if use_mid:
-        covered = covered + torch.sum(torch.where(mid_sel, count64[mid_idx], 0))
-    dropped_whole = torch.sum(torch.where(vis & ~small, count64, 0)) - covered
+        covered = covered + torch.sum(torch.where(
+            mid_sel, torch.gather(count64, 1, mid_idx), 0), dim=1)
+    dropped_whole = torch.sum(torch.where(vis & ~small, count64, 0),
+                              dim=1) - covered
+    overflow = clipped_big + dropped_whole
     return EmissionPlan(table, offsets, int(offsets[-1]), tiers, tiles_x,
                         tiles_y, (1 << rank_bits) if fused_ok else 0,
-                        clipped_big + dropped_whole)
-
-
+                        overflow)
 
 
 def bin_gaussians(
@@ -390,23 +435,31 @@ def bin_gaussians(
     Emission tiers: every Gaussian gets ``k_small`` slots; the top ``m_big``
     spanners (by AABB tile count) get ``k_big``. When ``m_mid``/``k_mid`` are
     set, a third tier slots the mid-size spanners (k_small < count <= k_mid)
-    at ``k_mid`` each, and the big tier only takes count > k_mid. Tiles are
-    TILE_W x TILE_H; the JAX signature's unused ``pair_capacity``,
-    ``max_tiles_per_gaussian`` and tile-size arguments are not carried over.
+    at ``k_mid`` each, and the big tier only takes count > k_mid. The
+    budgets apply to each camera of a batch; ``n_pairs`` and ``overflow``
+    are per camera, (1,) for one camera. Tiles are TILE_W x TILE_H; the JAX
+    signature's unused ``pair_capacity``, ``max_tiles_per_gaussian`` and
+    tile-size arguments are not carried over. Raises where the batch keeps
+    ``PAIR_LIMIT`` pairs or more.
     """
     plan = emission_plan(proj, width, height, k_small=k_small, m_big=m_big,
                          k_big=k_big, m_mid=m_mid, k_mid=k_mid)
     n_tiles = plan.tiles_x * plan.tiles_y
+    n_cams = plan.overflow.shape[0]
     mult = plan.mult
     keys, gauss, n_kept = emit_tile_pairs(plan.table, plan.offsets,
                                           plan.n_live, plan.tiles_x, mult)
     kept = int(n_kept)
+    if kept >= PAIR_LIMIT:
+        raise ValueError(
+            f"bin_gaussians: {n_cams} camera(s) keep {kept} pairs, past the "
+            "int32 pair index; render fewer cameras at a time")
     keys, gauss = keys[:kept], gauss[:kept]
 
     # 3. One sort orders the kept pairs per tile front to back. Kept keys are
     # unique, so an unstable sort gives the same pairs as a stable one, in
-    # whatever order K1 wrote them.
-    tile_ids = torch.arange(n_tiles + 1, dtype=torch.int64,
+    # whatever order K1 wrote them. The tiles are camera-major.
+    tile_ids = torch.arange(n_cams * n_tiles + 1, dtype=torch.int64,
                             device=keys.device)
     keys_sorted, perm = torch.sort(keys)
     if mult:
@@ -415,11 +468,12 @@ def bin_gaussians(
         # Two-key path: the int64 key (tile << 31) | rank.
         queries = tile_ids << 31
     bounds = torch.searchsorted(keys_sorted, queries).to(torch.int32)
+    cam_bounds = bounds[::n_tiles]             # each camera's first pair
     return TileBins(
         pair_gauss=gauss[perm],
         tile_start=bounds[:-1],
         tile_count=bounds[1:] - bounds[:-1],
-        n_pairs=bounds[-1],
+        n_pairs=cam_bounds[1:] - cam_bounds[:-1],
         overflow=plan.overflow.to(torch.int32),
         tiles_x=plan.tiles_x,
         tiles_y=plan.tiles_y,
@@ -429,14 +483,17 @@ def bin_gaussians(
 def pair_count_stats(proj: ProjectedGaussians, width: int,
                      height: int) -> dict:
     """Cheap elementwise probe of the binning workload (no sort): per-Gaussian
-    AABB tile counts reduced to the scalars ``suggest_budgets`` needs."""
+    AABB tile counts reduced to the scalars ``suggest_budgets`` needs. The
+    reductions run over the Gaussian axis, so a camera batch's projection
+    gives each statistic per camera, with a leading (B,) axis."""
     tiles_x, tiles_y = num_tiles(width, height)
     vis, _, _, _, count, _, _ = _tile_rect(proj, tiles_x, tiles_y)
-    exceed = torch.stack([torch.sum(count > k) for k in SUGGEST_THRESHOLDS])
+    exceed = torch.stack([torch.sum(count > k, -1)
+                          for k in SUGGEST_THRESHOLDS], -1)
     return {
-        "n_visible": torch.sum(vis),
-        "sum_count_parts": torch.sum(count.to(torch.int64)).reshape(1),
-        "max_count": torch.max(count),
+        "n_visible": torch.sum(vis, -1),
+        "sum_count_parts": torch.sum(count.to(torch.int64), -1)[..., None],
+        "max_count": torch.amax(count, -1),
         "exceed": exceed,   # aligned with SUGGEST_THRESHOLDS
     }
 

@@ -18,6 +18,17 @@ nothing.
 The sort's payload is exact f32 by default (``GRAD_SORT_DEFAULT``); ``"f16"``
 (per-channel absmax-scaled) and ``"bf16"`` are options.
 
+A stacked camera batch (``project_gaussians`` over B cameras and the batch's
+``bin_gaussians``) composites in one launch of K2, and its backward in one of
+K3 and one of K4, as the JAX package's vmapped ``pallas_call``s do: the
+attribute table has B·N rows (camera b's Gaussian g at row b·N + g, its id
+in ``GID_COL``), the kernels walk B·T camera-major tiles and take each
+tile's pixel origin from its index within its camera (``cam_tiles``), and
+K4 sums the B·N ids' rows; autograd through the batched projection then adds
+the cameras' gradients. Each camera's images, ``k_end`` and gradient rows
+are bitwise what it gives alone; budgets (``pair_capacity``,
+``tile_capacity``, ``grad_capacity``) apply per camera.
+
 ``composite_fwd_plain`` and ``composite_bwd_plain`` are the kernels' plain
 PyTorch versions; the wrappers take them only for CPU tensors.
 """
@@ -31,7 +42,6 @@ import torch
 
 from . import _build
 from .binning import TILE_H, TILE_W, TileBins
-from .composite_torch import _untile
 from .projection import ALPHA_MAX, ALPHA_MIN, ProjectedGaussians
 from .segreduce import segment_reduce_sorted
 
@@ -41,6 +51,8 @@ NFEAT = 16              # attribute-table columns
 NCH = 8                 # out channels: r,g,b,depth,alpha,trans,best_w,best_id
 NGRAD = 10              # gradient channels: d_a..d_cy, dop, df_r..df_d
 GID_COL = 11            # attr column carrying the Gaussian id (f32-exact < 2^24)
+GID_LIMIT = 1 << 24     # rows of a table (B·N for a camera batch) the f32 id
+                        # channel routes exactly
 TRANS_EPS = 1e-4        # early-termination threshold, per tile
 GRAD_SORT_DEFAULT = "f32"   # the backward's sort payload: exact f32
 GRAD_SORT_MODES = ("f32", "f16", "bf16")
@@ -81,14 +93,25 @@ def _plain_chunk(attrs, pair_gauss, start, count, k, ox, oy, px, py):
     return co, valid, alpha, raw
 
 
+def _origin(tid: torch.Tensor, tiles_x: int, cam_tiles: int):
+    """Pixel origins (b, 1, 1) of tiles ``tid``: the tile's index within its
+    camera (``cam_tiles`` tiles a camera) in rows of ``tiles_x``."""
+    tc = tid % cam_tiles
+    return (((tc % tiles_x) * TILE_W).to(torch.float32)[:, None, None],
+            ((tc // tiles_x) * TILE_H).to(torch.float32)[:, None, None])
+
+
 def composite_fwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
-                        tiles_x: int, tile_batch: int = 128):
+                        tiles_x: int, tile_batch: int = 128,
+                        cam_tiles: int = 0):
     """Plain PyTorch version of K2: the same chunk walk, alpha form, blend and
     per-tile early termination, vectorized over tiles in batches. Returns
-    (out (T, NCH, NPIX) float32, k_end (T,) int32)."""
+    (out (T, NCH, NPIX) float32, k_end (T,) int32). ``cam_tiles``: tiles of
+    one camera of a batch (0: all T)."""
     dev = attrs.device
     n_tiles = tile_start.shape[0]
+    cam_tiles = cam_tiles or max(n_tiles, 1)
     px, py = _pixel_centers(dev)
     outs, kends = [], []
     for t0 in range(0, n_tiles, tile_batch):
@@ -97,8 +120,7 @@ def composite_fwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
         start = tile_start[tid].long()
         count = tile_count[tid].long()
         n_chunks = (count + CHUNK - 1) // CHUNK
-        ox = ((tid % tiles_x) * TILE_W).to(torch.float32)[:, None, None]
-        oy = ((tid // tiles_x) * TILE_H).to(torch.float32)[:, None, None]
+        ox, oy = _origin(tid, tiles_x, cam_tiles)
         trans = torch.ones((b, NPIX), device=dev)
         acc = torch.zeros((b, 5, NPIX), device=dev)
         best_w = torch.zeros((b, NPIX), device=dev)
@@ -136,16 +158,27 @@ def composite_fwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     return torch.cat(outs), torch.cat(kends)
 
 
+def _cam_tiles(cam_tiles: int, n_tiles: int) -> int:
+    """``cam_tiles`` checked against the tile count (0: one camera)."""
+    cam_tiles = int(cam_tiles) or max(n_tiles, 1)
+    if cam_tiles < 1 or n_tiles % cam_tiles:
+        raise ValueError(f"{n_tiles} tiles are not whole cameras of "
+                         f"{cam_tiles} tiles")
+    return cam_tiles
+
+
 def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
-                  tiles_x: int):
+                  tiles_x: int, cam_tiles: int = 0):
     """K2 wrapper: (out (T, NCH, NPIX) float32, k_end (T,) int32).
 
     ``attrs`` (N, NFEAT) float32, 16-byte aligned (the kernel reads its rows
     as float4; checked on every device); ``pair_gauss`` (P,) int32 with
     entries in [0, N); ``tile_start``/``tile_count`` (T,) int32 with every
-    tile's range inside [0, P). A CPU tensor takes the plain version; a CUDA
-    tensor launches ``csrc/composite_fwd.cu``."""
+    tile's range inside [0, P). ``cam_tiles``: the tiles of one camera when
+    the T tiles are a camera batch's, camera-major (0: one camera). A CPU
+    tensor takes the plain version; a CUDA tensor launches
+    ``csrc/composite_fwd.cu``, once for the whole batch."""
     tensors = (attrs, pair_gauss, tile_start, tile_count)
     if attrs.dim() != 2 or attrs.shape[1] != NFEAT or attrs.dtype != torch.float32:
         raise ValueError(f"attrs must be (N, {NFEAT}) float32")
@@ -159,9 +192,10 @@ def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     if any(x.device != attrs.device for x in tensors):
         raise ValueError("composite_fwd: inputs on different devices")
     n_tiles = tile_start.shape[0]
+    cam_tiles = _cam_tiles(cam_tiles, n_tiles)
     if attrs.device.type == "cpu":
         return composite_fwd_plain(attrs, pair_gauss, tile_start, tile_count,
-                                   tiles_x)
+                                   tiles_x, cam_tiles=cam_tiles)
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_fwd: unsupported device {attrs.device}")
     if not all(x.is_contiguous() for x in tensors):
@@ -175,7 +209,7 @@ def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
         _build.load("composite_fwd").sage3d_composite_fwd, attrs.device,
         attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
         tile_count.data_ptr(), out.data_ptr(), kend.data_ptr(), n_tiles,
-        tiles_x, attrs.shape[0], pair_gauss.shape[0])
+        tiles_x, cam_tiles, attrs.shape[0], pair_gauss.shape[0])
     _build.check(err, "composite_fwd")
     composite_fwd.launches += 1
     return out, kend
@@ -197,7 +231,8 @@ def composite_bwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
                         chunk0: torch.Tensor, allowed: torch.Tensor,
                         fwd_out: torch.Tensor, gout: torch.Tensor, c_cap: int,
-                        tiles_x: int, tile_batch: int = 32) -> torch.Tensor:
+                        tiles_x: int, tile_batch: int = 32,
+                        cam_tiles: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K3, vectorized over tiles in batches: the
     forward replayed as ``composite_fwd_plain`` computes it, the ten gradient
     channels per pair summed over the tile's pixels, and row
@@ -205,6 +240,7 @@ def composite_bwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     pair of the first ``allowed[t]`` chunks (Gaussian id in GID_COL)."""
     dev = attrs.device
     n_tiles = tile_start.shape[0]
+    cam_tiles = cam_tiles or max(n_tiles, 1)
     px, py = _pixel_centers(dev)
     lanes = torch.arange(CHUNK, device=dev)
     slots = _slot_buffer(c_cap, attrs.shape[0], dev)
@@ -214,8 +250,7 @@ def composite_bwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
         count = tile_count[tid].long()
         ch0 = chunk0[tid].long()
         allow = allowed[tid].long()
-        ox = ((tid % tiles_x) * TILE_W).to(torch.float32)[:, None, None]
-        oy = ((tid // tiles_x) * TILE_H).to(torch.float32)[:, None, None]
+        ox, oy = _origin(tid, tiles_x, cam_tiles)
         g = gout[tid][:, :, None, :]                     # (b, NCH, 1, NPIX)
         f = fwd_out[tid][:, :, None, :]
         g0, g1, g2, g3, g4 = (g[:, ch] for ch in range(5))
@@ -266,7 +301,7 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
                   chunk0: torch.Tensor, allowed: torch.Tensor,
                   fwd_out: torch.Tensor, gout: torch.Tensor, c_cap: int,
-                  tiles_x: int) -> torch.Tensor:
+                  tiles_x: int, cam_tiles: int = 0) -> torch.Tensor:
     """K3 wrapper: the (c_cap * CHUNK, NFEAT) float32 slot buffer of per-pair
     gradient rows (channels 0..NGRAD-1, Gaussian id in GID_COL). Rows no pair
     fills (lanes past a chunk's last pair, slots past a tile's allowed
@@ -275,7 +310,8 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     Tile ``t`` fills slots ``chunk0[t] .. chunk0[t] + allowed[t] - 1``; the
     caller keeps those inside ``[0, c_cap)`` and ``allowed[t]`` within the
     forward's ``k_end[t]``. ``fwd_out``/``gout`` are (T, NCH, NPIX) float32:
-    K2's output and its cotangent. A CPU tensor takes the plain version; a
+    K2's output and its cotangent. ``cam_tiles`` as for ``composite_fwd``:
+    a camera batch is one launch. A CPU tensor takes the plain version; a
     CUDA tensor launches ``csrc/composite_bwd.cu``."""
     ints = (pair_gauss, tile_start, tile_count, chunk0, allowed)
     if attrs.dim() != 2 or attrs.shape[1] != NFEAT or attrs.dtype != torch.float32:
@@ -293,10 +329,11 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     tensors = (attrs, *ints, fwd_out, gout)
     if any(x.device != attrs.device for x in tensors):
         raise ValueError("composite_bwd: inputs on different devices")
+    cam_tiles = _cam_tiles(cam_tiles, n_tiles)
     if attrs.device.type == "cpu":
         return composite_bwd_plain(attrs, pair_gauss, tile_start, tile_count,
                                    chunk0, allowed, fwd_out, gout, c_cap,
-                                   tiles_x)
+                                   tiles_x, cam_tiles=cam_tiles)
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_bwd: unsupported device {attrs.device}")
     if not all(x.is_contiguous() for x in tensors):
@@ -312,7 +349,7 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
         attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
         tile_count.data_ptr(), chunk0.data_ptr(), allowed.data_ptr(),
         fwd_out.data_ptr(), gout.data_ptr(), slots.data_ptr(), n_tiles,
-        tiles_x, attrs.shape[0], pair_gauss.shape[0], c_cap)
+        tiles_x, cam_tiles, attrs.shape[0], pair_gauss.shape[0], c_cap)
     _build.check(err, "composite_bwd")
     composite_bwd.launches += 1
     return slots
@@ -330,28 +367,36 @@ def composite_bwd_registers() -> int:
     return regs.value
 
 
-def slot_ranges(kend: torch.Tensor, c_cap: int):
-    """Each tile's first gradient slot and its number of slots: the slots
-    are packed by the forward's k_end, and chunks past ``c_cap`` are cut
-    (counted as overflow by ``composite_tiles_cuda``). Returns (chunk0,
-    allowed), (T,) int32."""
-    kend = kend.long()
-    chunk0 = torch.cumsum(kend, 0) - kend
-    allowed = torch.clamp(torch.minimum(kend, c_cap - chunk0), min=0)
-    return chunk0.to(torch.int32), allowed.to(torch.int32)
+def slot_ranges(kend: torch.Tensor, c_cap: int, groups: int = 1):
+    """Each tile's first gradient slot and its number of slots: the tiles
+    fall into ``groups`` equal runs (the cameras of a batch, each with its
+    own buffer, or one run for one pool), run g's slots start at g·c_cap
+    and are packed by the forward's k_end, and chunks past the run's
+    ``c_cap`` are cut (counted as overflow by ``composite_tiles_cuda``).
+    Returns (chunk0, allowed), (T,) int32; the buffer holds groups·c_cap
+    slots."""
+    kend = kend.long().view(groups, -1)
+    local = torch.cumsum(kend, 1) - kend
+    allowed = torch.clamp(torch.minimum(kend, c_cap - local), min=0)
+    chunk0 = local + torch.arange(groups, device=kend.device)[:, None] * c_cap
+    return (chunk0.reshape(-1).to(torch.int32),
+            allowed.reshape(-1).to(torch.int32))
 
 
 def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
                   kend: torch.Tensor, fwd_out: torch.Tensor,
                   gout: torch.Tensor, tiles_x: int, c_cap: int,
-                  grad_sort: str = GRAD_SORT_DEFAULT) -> torch.Tensor:
+                  grad_sort: str = GRAD_SORT_DEFAULT, cam_tiles: int = 0,
+                  groups: int = 1) -> torch.Tensor:
     """The backward of ``attrs -> out``: d_attrs (N, NFEAT), columns NGRAD..
     zero. K3 fills the slot buffer; a stable sort groups its rows by the
     Gaussian id they carry; K4 sums each Gaussian's rows. The rows no pair
     filled carry the id N: they sort last and K4 skips them, and the rows
     of every Gaussian keep their order, so a larger ``c_cap`` changes no
-    bit of the result. Nothing waits for the device.
+    bit of the result. Nothing waits for the device. A camera batch
+    (``cam_tiles``, N = B·N rows) is one K3 and one K4 launch; its buffer is
+    ``groups`` runs of ``c_cap`` slots (``slot_ranges``).
 
     ``grad_sort`` picks the sort's payload: ``"f32"`` (exact, the default)
     as K3 wrote it; ``"f16"`` scales each channel to an absmax of 30000,
@@ -361,9 +406,10 @@ def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     mode. The sums are f32 in every mode."""
     if grad_sort not in GRAD_SORT_MODES:
         raise ValueError(f"unknown grad_sort mode: {grad_sort}")
-    chunk0, allowed = slot_ranges(kend, c_cap)
+    chunk0, allowed = slot_ranges(kend, c_cap, groups)
     slots = composite_bwd(attrs, pair_gauss, tile_start, tile_count, chunk0,
-                          allowed, fwd_out, gout, c_cap, tiles_x)
+                          allowed, fwd_out, gout, groups * c_cap, tiles_x,
+                          cam_tiles)
     ids_sorted, perm = torch.sort(slots[:, GID_COL].to(torch.int32),
                                   stable=True)
     n = attrs.shape[0]
@@ -388,13 +434,14 @@ class _AttrComposite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, attrs, pair_gauss, tile_start, tile_count, tiles_x,
-                c_cap, grad_sort):
+                c_cap, grad_sort, cam_tiles, groups):
         out, kend = composite_fwd(attrs, pair_gauss, tile_start, tile_count,
-                                  tiles_x)
+                                  tiles_x, cam_tiles)
         ctx.mark_non_differentiable(kend)
         ctx.save_for_backward(attrs, pair_gauss, tile_start, tile_count, kend,
                               out)
         ctx.tiles_x, ctx.c_cap, ctx.grad_sort = tiles_x, c_cap, grad_sort
+        ctx.cam_tiles, ctx.groups = cam_tiles, groups
         return out, kend
 
     @staticmethod
@@ -402,55 +449,71 @@ class _AttrComposite(torch.autograd.Function):
         attrs, pair_gauss, tile_start, tile_count, kend, out = ctx.saved_tensors
         d_attrs = composite_vjp(attrs, pair_gauss, tile_start, tile_count,
                                 kend, out, gout.contiguous(), ctx.tiles_x,
-                                ctx.c_cap, ctx.grad_sort)
-        return d_attrs, None, None, None, None, None, None
+                                ctx.c_cap, ctx.grad_sort, ctx.cam_tiles,
+                                ctx.groups)
+        return d_attrs, None, None, None, None, None, None, None, None
 
 
 def attr_composite(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                    tile_start: torch.Tensor, tile_count: torch.Tensor,
                    tiles_x: int, c_cap: int,
-                   grad_sort: str = GRAD_SORT_DEFAULT):
+                   grad_sort: str = GRAD_SORT_DEFAULT, cam_tiles: int = 0,
+                   groups: int = 1):
     """Differentiable ``attrs -> (out (T, NCH, NPIX), k_end (T,))``: K2
     forward; backward through K3, the sort and K4 into a gradient buffer of
-    ``c_cap`` chunk slots. ``k_end`` carries no gradient."""
+    ``groups`` runs of ``c_cap`` chunk slots (``slot_ranges``).
+    ``cam_tiles``: the tiles of one camera of a batch (0: one camera).
+    ``k_end`` carries no gradient."""
     if grad_sort not in GRAD_SORT_MODES:
         raise ValueError(f"unknown grad_sort mode: {grad_sort}")
     return _AttrComposite.apply(attrs, pair_gauss, tile_start, tile_count,
-                                tiles_x, int(c_cap), grad_sort)
+                                tiles_x, int(c_cap), grad_sort,
+                                _cam_tiles(cam_tiles, tile_start.shape[0]),
+                                int(groups))
 
 
 def attribute_table(proj: ProjectedGaussians,
                     semantic_ids: torch.Tensor) -> torch.Tensor:
     """The per-Gaussian (N, NFEAT) table: conic a/b/c, mean x/y, opacity,
-    rgb, depth, semantic id, Gaussian id (GID_COL), 4 zero pads."""
-    n = proj.depths.shape[0]
+    rgb, depth, semantic id, Gaussian id (GID_COL), 4 zero pads. For a
+    camera batch ((B, N, ...) fields) the (B·N, NFEAT) table of every
+    camera's rows, row b·N + g, whose id is the row."""
+    shape = proj.depths.shape
     dev = proj.depths.device
-    zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
+    zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
+    rows = torch.arange(proj.depths.numel(), dtype=torch.float32,
+                        device=dev).view(shape)
     return torch.stack([
-        proj.conics[:, 0], proj.conics[:, 1], proj.conics[:, 2],
-        proj.means2d[:, 0], proj.means2d[:, 1],
+        proj.conics[..., 0], proj.conics[..., 1], proj.conics[..., 2],
+        proj.means2d[..., 0], proj.means2d[..., 1],
         proj.opacities,
-        proj.colors[:, 0], proj.colors[:, 1], proj.colors[:, 2],
+        proj.colors[..., 0], proj.colors[..., 1], proj.colors[..., 2],
         proj.depths,
-        semantic_ids.to(torch.float32),
-        torch.arange(n, dtype=torch.float32, device=dev),   # GID_COL
+        semantic_ids.to(torch.float32).expand(shape),
+        rows,                                               # GID_COL
         zeros, zeros, zeros, zeros,
-    ], dim=1)
+    ], dim=-1).reshape(-1, NFEAT)
 
 
 def trim_to_capacity(bins: TileBins, pair_capacity: int = 0):
-    """Cut the sorted pair list to ``pair_capacity`` (0 = keep it whole) and
-    clip every tile's range to it. Returns (pair_gauss, tile_start,
-    tile_count, pair_capacity), int32 and contiguous."""
+    """Cut each camera's sorted pair list to ``pair_capacity`` (0 = keep it
+    whole): every tile's range is clipped to its camera's first
+    ``pair_capacity`` pairs; ``pair_gauss`` stays whole. Returns
+    (pair_gauss, tile_start, tile_count, pair_capacity), int32 and
+    contiguous."""
     full_p = bins.pair_gauss.shape[0]
     if not pair_capacity or pair_capacity >= full_p:
         pair_capacity = full_p
-    start = torch.clamp(bins.tile_start, max=pair_capacity)
-    count = torch.clamp(torch.clamp(bins.tile_start + bins.tile_count,
+    n_cams = bins.n_cams
+    # each camera's first pair: 0 for one camera
+    first = bins.tile_start.view(n_cams, -1)[:, :1]
+    local = bins.tile_start.view(n_cams, -1) - first
+    start = torch.clamp(local, max=pair_capacity)
+    count = torch.clamp(torch.clamp(local + bins.tile_count.view(n_cams, -1),
                                     max=pair_capacity) - start, min=0)
-    return (bins.pair_gauss[:pair_capacity].contiguous(),
-            start.to(torch.int32).contiguous(),
-            count.to(torch.int32).contiguous(), pair_capacity)
+    return (bins.pair_gauss.contiguous(),
+            (start + first).reshape(-1).to(torch.int32).contiguous(),
+            count.reshape(-1).to(torch.int32).contiguous(), pair_capacity)
 
 
 def composite_tiles_cuda(
@@ -465,8 +528,8 @@ def composite_tiles_cuda(
     grad_sort: str = None,
     grad_capacity: int = 0,
 ) -> Dict[str, torch.Tensor]:
-    """Composite via kernel K2, differentiable through K3 and K4. Same output
-    schema as ``composite_tiles``.
+    """Composite via kernel K2, differentiable through K3 and K4. The outputs
+    of ``composite_tiles``, with a leading camera axis.
 
     ``pair_capacity`` (0 = the binning entry budget) trims the sorted pair
     array; trimmed pairs are counted as overflow. ``grad_capacity`` (in
@@ -476,6 +539,13 @@ def composite_tiles_cuda(
     undersized capacity never passes silently. ``grad_sort``: the backward's
     sort payload, ``"f32"`` (default, exact), ``"f16"`` or ``"bf16"``;
     ``grad_sort_bf16=True`` is the JAX package's alias for ``"bf16"``.
+
+    ``bins`` holds B cameras (B = 1 for one camera; ``proj`` of one
+    camera or of the batch): they composite in one K2 launch, differentiate
+    in one K3 and one K4 launch, and give (B, H, W, ...) images with
+    per-camera ``grad_chunks`` and ``tile_overflow``; ``pair_capacity``,
+    ``tile_capacity`` and ``grad_capacity`` apply to each camera. B·N must
+    stay below ``GID_LIMIT``.
     """
     mode = grad_sort if grad_sort is not None else (
         "bf16" if grad_sort_bf16 else GRAD_SORT_DEFAULT)
@@ -483,28 +553,50 @@ def composite_tiles_cuda(
         raise ValueError(f"unknown grad_sort mode: {mode}")
     tiles_x, tiles_y = bins.tiles_x, bins.tiles_y
     n_tiles = tiles_x * tiles_y
+    n_cams = bins.n_cams
+    full_p = bins.pair_gauss.shape[0]
     pair_gauss_t, tile_start_t, tile_count_t, pair_capacity = trim_to_capacity(
         bins, pair_capacity)
     count_c = torch.clamp(tile_count_t, max=tile_capacity)
     trim_overflow = torch.clamp(bins.n_pairs - pair_capacity, min=0)
-    c_cap = int(grad_capacity) if grad_capacity and grad_capacity > 0 else (
-        pair_capacity // CHUNK + n_tiles)
+    if grad_capacity and grad_capacity > 0:
+        # each camera its own run of grad_capacity slots
+        c_cap, groups = int(grad_capacity), n_cams
+    else:
+        # one pool: the safe bound of every camera's chunks together, so no
+        # chunk is ever cut (per camera it is pair_capacity // CHUNK + T)
+        c_cap = min(n_cams * pair_capacity, full_p) // CHUNK + n_cams * n_tiles
+        groups = 1
 
-    n = proj.depths.shape[0]
-    # The backward routes gradients by a float32 Gaussian id (GID_COL),
-    # exact only below 2^24: refuse larger scenes here, as the JAX package does.
-    if n >= (1 << 24):
+    n = proj.depths.numel()
+    # The backward routes gradients by a float32 row id (GID_COL), exact
+    # only below 2^24: refuse larger scenes or batches here, as the JAX
+    # package does (render_batch splits a batch into groups below it).
+    if n >= GID_LIMIT:
         raise ValueError(
-            f"composite_tiles_cuda: {n} Gaussians >= 2^24; the f32 id channel "
-            "of the backward would mis-route gradients. Use the torch "
-            "compositor or shard the scene.")
+            f"composite_tiles_cuda: {n} Gaussian rows (cameras x Gaussians) "
+            ">= 2^24; the f32 id channel of the backward would mis-route "
+            "gradients. Use the torch compositor, fewer cameras a batch, or "
+            "shard the scene.")
     attrs = attribute_table(proj, semantic_ids)
     out, kend = attr_composite(attrs, pair_gauss_t, tile_start_t, count_c,
-                               tiles_x, c_cap, mode)
-    grad_chunks = torch.sum(kend, dtype=torch.int32)
-    grad_overflow = torch.clamp(grad_chunks - c_cap, min=0) * CHUNK
+                               tiles_x, c_cap, mode, cam_tiles=n_tiles,
+                               groups=groups)
+    grad_chunks = torch.sum(kend.view(n_cams, n_tiles), 1, dtype=torch.int32)
+    if groups == n_cams:
+        cap_b = c_cap
+    else:   # each camera's own safe bound: nothing is cut
+        cap_b = (torch.clamp(bins.n_pairs, max=pair_capacity) // CHUNK
+                 + n_tiles)
+    grad_overflow = torch.clamp(grad_chunks - cap_b, min=0) * CHUNK
 
-    imgs = _untile(out.transpose(1, 2), tiles_x, tiles_y, width, height)
+    tile_overflow = torch.sum(torch.clamp(tile_count_t - tile_capacity, min=0)
+                              .view(n_cams, n_tiles), 1)
+    c = out.shape[1]
+    imgs = (out.view(n_cams, tiles_y, tiles_x, c, TILE_H, TILE_W)
+            .permute(0, 1, 4, 2, 5, 3)
+            .reshape(n_cams, tiles_y * TILE_H, tiles_x * TILE_W, c)
+            [:, :height, :width])
     return {
         "rgb": imgs[..., 0:3],
         "depth_acc": imgs[..., 3],
@@ -512,7 +604,6 @@ def composite_tiles_cuda(
         "trans": imgs[..., 5],
         "semantic": imgs[..., 7].to(torch.int32),
         "grad_chunks": grad_chunks,
-        "tile_overflow": torch.sum(torch.clamp(tile_count_t - tile_capacity,
-                                               min=0))
-        + trim_overflow + grad_overflow,
+        "tile_overflow": tile_overflow + trim_overflow.view(-1)
+        + grad_overflow,
     }

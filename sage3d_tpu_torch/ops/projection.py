@@ -24,7 +24,7 @@ ALPHA_MIN = 1.0 / 255.0
 class ProjectedGaussians(NamedTuple):
     """Per-Gaussian screen-space quantities consumed by the compositors."""
 
-    means2d: torch.Tensor    # (N, 2) pixel coords
+    means2d: torch.Tensor    # (N, 2) pixel coords ((B, N, ...) for a camera batch)
     conics: torch.Tensor     # (N, 3) inverse 2D covariance (a, b, c): [[a,b],[b,c]]
     depths: torch.Tensor     # (N,) camera-space z
     radii: torch.Tensor      # (N,) int32 conservative pixel radius (0 => culled)
@@ -61,7 +61,13 @@ def covariance_3d(log_scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor
 def project_gaussians(scene: GaussianScene, camera: Camera,
                       sh_degree: Optional[int] = None,
                       clamp_dims: Optional[tuple] = None) -> ProjectedGaussians:
-    """Project all Gaussians into one camera.
+    """Project all Gaussians into one camera, or into each camera of a
+    stacked batch (``stack_cameras``): then every field carries a leading
+    camera axis, (B, N, ...), and camera b's slice is bitwise what camera b
+    alone gives (the channel math is elementwise, the camera's scalars
+    broadcast over the Gaussians). The batch is one set of launches with
+    view-dependent SH per camera; autograd sums the scene's gradients over
+    the cameras.
 
     ``clamp_dims`` (width, height) overrides the frustum-cone clamp used in the
     EWA Jacobian (band-sharded renders pass the full frame dims).
@@ -70,32 +76,40 @@ def project_gaussians(scene: GaussianScene, camera: Camera,
         sh_degree = scene.sh_degree
     clamp_w, clamp_h = clamp_dims if clamp_dims is not None else (
         camera.width, camera.height)
+    batched = camera.position.dim() == 2
+
+    def cam(x):   # a camera scalar, shaped to broadcast over the Gaussians
+        return x[..., None] if batched else x
 
     W = camera.world_to_cam                        # (3, 3) world -> camera
-    d0 = scene.means[:, 0] - camera.position[0]
-    d1 = scene.means[:, 1] - camera.position[1]
-    d2 = scene.means[:, 2] - camera.position[2]
-    t0, t1, tz = (W[i, 0] * d0 + W[i, 1] * d1 + W[i, 2] * d2 for i in range(3))
+    Wc = [[cam(W[..., i, j]) for j in range(3)] for i in range(3)]
+    d0 = scene.means[:, 0] - cam(camera.position[..., 0])
+    d1 = scene.means[:, 1] - cam(camera.position[..., 1])
+    d2 = scene.means[:, 2] - cam(camera.position[..., 2])
+    t0, t1, tz = (Wc[i][0] * d0 + Wc[i][1] * d1 + Wc[i][2] * d2
+                  for i in range(3))
     depths = tz
+    fx, fy, cx, cy = (cam(x) for x in (camera.fx, camera.fy, camera.cx,
+                                        camera.cy))
 
     tz_safe = torch.where(torch.abs(tz) < 1e-6, 1e-6, tz)
     inv_z = 1.0 / tz_safe
-    u = camera.fx * t0 * inv_z + camera.cx
-    v = camera.fy * t1 * inv_z + camera.cy
+    u = fx * t0 * inv_z + cx
+    v = fy * t1 * inv_z + cy
     means2d = torch.stack([u, v], dim=-1)
 
     # EWA: Sigma2D = (JW M)(JW M)^T with M = R diag(S), as channel math.
     # The Jacobian point is clamped to the frustum cone (classic 3DGS).
-    lim_x = 1.3 * (0.5 * clamp_w / camera.fx)
-    lim_y = 1.3 * (0.5 * clamp_h / camera.fy)
+    lim_x = 1.3 * (0.5 * clamp_w / fx)
+    lim_y = 1.3 * (0.5 * clamp_h / fy)
     txz = torch.minimum(torch.maximum(t0 * inv_z, -lim_x), lim_x) * tz_safe
     tyz = torch.minimum(torch.maximum(t1 * inv_z, -lim_y), lim_y) * tz_safe
-    fx_z = camera.fx * inv_z
-    fy_z = camera.fy * inv_z
-    jx2 = -camera.fx * txz * inv_z * inv_z   # J[0,2]
-    jy2 = -camera.fy * tyz * inv_z * inv_z   # J[1,2]
-    jw0 = [fx_z * W[0, j] + jx2 * W[2, j] for j in range(3)]
-    jw1 = [fy_z * W[1, j] + jy2 * W[2, j] for j in range(3)]
+    fx_z = fx * inv_z
+    fy_z = fy * inv_z
+    jx2 = -fx * txz * inv_z * inv_z   # J[0,2]
+    jy2 = -fy * tyz * inv_z * inv_z   # J[1,2]
+    jw0 = [fx_z * Wc[0][j] + jx2 * Wc[2][j] for j in range(3)]
+    jw1 = [fy_z * Wc[1][j] + jy2 * Wc[2][j] for j in range(3)]
     Rq = _rotmat_channels(scene.quats)
     S = torch.exp(scene.log_scales)
     u0 = [S[:, k] * (jw0[0] * Rq[0][k] + jw0[1] * Rq[1][k] + jw0[2] * Rq[2][k])
@@ -121,17 +135,21 @@ def project_gaussians(scene: GaussianScene, camera: Camera,
     ext_x = torch.ceil(s_cut * torch.sqrt(torch.clamp(a, min=0.0))) + 1.0
     ext_y = torch.ceil(s_cut * torch.sqrt(torch.clamp(c, min=0.0))) + 1.0
 
-    view_dirs = scene.means - camera.position
-    view_dirs = view_dirs / (torch.linalg.norm(view_dirs, dim=-1, keepdim=True)
-                             + 1e-12)
-    colors = eval_sh(scene.sh, view_dirs, sh_degree)
+    # The view direction's norm written out, so that it adds in one order
+    # whatever the batch (a reduction's order may follow the shape).
+    norm = torch.sqrt(d0 * d0 + d1 * d1 + d2 * d2)
+    view_dirs = torch.stack([d0, d1, d2], dim=-1) / (norm[..., None] + 1e-12)
+    # (degree 0 does not read the direction: one set of colours for all)
+    colors = eval_sh(scene.sh, view_dirs, sh_degree).expand(
+        view_dirs.shape)
 
     inside = ((u + ext_x > 0) & (u - ext_x < camera.width)
               & (v + ext_y > 0) & (v - ext_y < camera.height))
     visible = ((tz > camera.near) & (tz < camera.far) & (det > 0) & inside
                & (op > ALPHA_MIN))
     radii = torch.where(visible, radii_f, 0.0).to(torch.int32)
-    extents = torch.where(visible[:, None], torch.stack([ext_x, ext_y], -1), 0.0)
+    extents = torch.where(visible[..., None], torch.stack([ext_x, ext_y], -1),
+                          0.0)
 
     return ProjectedGaussians(
         means2d=means2d,
@@ -139,7 +157,7 @@ def project_gaussians(scene: GaussianScene, camera: Camera,
         depths=depths,
         radii=radii,
         colors=colors,
-        opacities=scene.opacities,
+        opacities=scene.opacities.expand(depths.shape),
         visible=visible,
         extents=extents,
     )

@@ -109,7 +109,10 @@ def densify_prune(params: Dict[str, torch.Tensor], state: DensifyState,
     prune = alive & (torch.sigmoid(ol) < config.prune_opacity)
     alive2 = alive & ~prune
 
-    avg = state.grad_accum / float(max(state.n_steps, 1))
+    # A tensor divisor: CUDA divides by a Python number as a multiply by its
+    # reciprocal, which ranks near-equal scores unlike the CPU (and JAX).
+    acc = state.grad_accum
+    avg = acc / torch.full_like(acc, float(max(state.n_steps, 1)))
     cand = alive2 & (avg > config.grad_threshold)
 
     # Rank candidates by score (desc) and free slots (index order); the k-th

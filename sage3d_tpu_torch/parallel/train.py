@@ -1,10 +1,14 @@
 """Scene optimization: the train step, on one device or over a mesh.
 
 PyTorch counterpart of ``sage3d_tpu/parallel/train.py``. A step renders
-every camera of the batch, one after another, takes the masked squared error
-against its target, and runs Adam on the five trainable groups. The loss of
-a batch is the squared error summed over cameras, rows, columns and
-channels, divided by ``B * H * W * 3``.
+every camera of the batch, takes the masked squared error against its
+target, and runs Adam on the five trainable groups. On the ``cuda`` backend
+the batch is one batched render (``render_batch``: one launch each of K1,
+K2, K3 and K4 for the cameras, as the JAX package's ``jax.vmap`` over them)
+and one ``backward``; the ``torch`` and ``oracle`` backends render and
+backpropagate camera by camera, so one camera's graph is freed before the
+next is built. The loss of a batch is the squared error summed over cameras,
+rows, columns and channels, divided by ``B * H * W * 3``.
 
 The state is mutable, as PyTorch's is: ``TrainState.params`` are leaf tensors
 that ``opt_state`` (a ``torch.optim.Adam`` over them) updates in place, and a
@@ -29,7 +33,7 @@ import torch
 
 from ..ops.binning import TILE_H
 from ..renderer.camera import Camera, unstack_cameras
-from ..renderer.render import render
+from ..renderer.render import render, render_batch
 from ..renderer.scene import GaussianScene
 from .mesh import (Mesh, all_reduce, gather_into, make_mesh,
                    reduce_scatter_into, shard_rows)
@@ -239,12 +243,22 @@ def make_train_step(template: GaussianScene, camera: Camera, mesh=None,
             < height).to(torch.float32)[:, None, None]
 
     def band_error(scene, cam_batch, targets, n_px) -> torch.Tensor:
-        """Backpropagate each camera's masked error over this band / n_px,
-        camera by camera, so one camera's graph is freed before the next is
-        rendered. Returns the summed error, detached."""
+        """Backpropagate the masked error of this band / n_px: on the
+        ``cuda`` backend one batched render of the band cameras and one
+        backward, else camera by camera, so one camera's graph is freed
+        before the next is rendered. Returns the summed error, detached."""
         if targets.shape[1] < n_tile * band_h:    # pad rows to the band grid
             targets = torch.nn.functional.pad(
                 targets, (0, 0, 0, 0, 0, n_tile * band_h - targets.shape[1]))
+        if backend == "cuda":
+            cams = cam_batch._replace(cy=cam_batch.cy - y0, height=band_h)
+            out = render_batch(scene, cams, backend=backend,
+                               clamp_dims=(width, height), **render_kw)
+            err = torch.sum(((out["rgb"] - targets[:, y0:y0 + band_h]) ** 2)
+                            * mask)
+            if err.requires_grad:   # else no Gaussian reaches this band
+                (err / n_px).backward()
+            return err.detach()
         total = torch.zeros((), dtype=torch.float32, device=targets.device)
         for cam, target in zip(unstack_cameras(cam_batch), targets):
             if y0:

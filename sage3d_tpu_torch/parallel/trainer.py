@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 from ..renderer.camera import Camera, make_camera, stack_cameras
-from ..renderer.render import budget_kwargs, render
+from ..renderer.render import budget_kwargs, render_batch
 from ..renderer.scene import GaussianScene
 from .checkpoint import restore_train_state, save_train_state
 from .densify import (DEAD_LOGIT, PARK_POS, DensifyConfig, DensifyState,
@@ -325,8 +325,9 @@ def _sharded_round(state, dstate: DensifyState, gen, dcfg: DensifyConfig,
 def make_orbit_targets(scene: GaussianScene, n_views: int = 4,
                        radius: float = 5.0, width: int = 128,
                        height: int = 128, backend: str = "torch"):
-    """Ground-truth targets rendered from an orbit of cameras, one camera
-    after another (test and demo data). Returns (cameras, targets)."""
+    """Ground-truth targets rendered from an orbit of cameras by
+    ``render_batch`` (on the ``cuda`` backend one batched render; test and
+    demo data). Returns (cameras, targets)."""
     cams = []
     for i in range(n_views):
         ang = 2 * np.pi * i / n_views
@@ -334,6 +335,5 @@ def make_orbit_targets(scene: GaussianScene, n_views: int = 4,
         cams.append(make_camera(pos, [-np.cos(ang), -np.sin(ang), -0.1],
                                 width=width, height=height,
                                 device=scene.device))
-    targets = torch.stack([render(scene, c, backend=backend)["rgb"]
-                           for c in cams])
-    return stack_cameras(cams), targets
+    cams = stack_cameras(cams)
+    return cams, render_batch(scene, cams, backend=backend)["rgb"]

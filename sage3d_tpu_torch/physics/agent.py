@@ -46,7 +46,9 @@ MIN_MOVE = 0.001
 
 
 class AgentState(NamedTuple):
-    """Agent state, tensors on one device."""
+    """Agent state, tensors on one device. B agents in lockstep (the JAX
+    package's ``vmap`` over agents) carry a leading axis on every field:
+    pos (B, 3), the rest (B,)."""
 
     pos: torch.Tensor                    # (3,) world position
     yaw: torch.Tensor                    # () heading
@@ -57,46 +59,53 @@ class AgentState(NamedTuple):
 
 
 def init_agent(pos, yaw, device=None) -> AgentState:
-    """A fresh agent at ``pos`` (3,) heading ``yaw``; ``device=None`` means
-    the card."""
+    """A fresh agent at ``pos`` (3,) heading ``yaw``, or B agents at (B, 3)
+    and (B,); ``device=None`` means the card."""
     dev = resolve_device(device)
+    yaw = torch.as_tensor(yaw, dtype=torch.float32, device=dev)
     return AgentState(
         pos=torch.as_tensor(pos, dtype=torch.float32, device=dev),
-        yaw=torch.as_tensor(yaw, dtype=torch.float32, device=dev),
-        consecutive_collisions=torch.zeros((), dtype=torch.int32, device=dev),
-        total_collisions=torch.zeros((), dtype=torch.int32, device=dev),
-        collision_detected=torch.zeros((), dtype=torch.bool, device=dev),
-        time_s=torch.zeros((), dtype=torch.float32, device=dev),
+        yaw=yaw,
+        consecutive_collisions=torch.zeros(yaw.shape, dtype=torch.int32,
+                                           device=dev),
+        total_collisions=torch.zeros(yaw.shape, dtype=torch.int32,
+                                     device=dev),
+        collision_detected=torch.zeros(yaw.shape, dtype=torch.bool,
+                                       device=dev),
+        time_s=torch.zeros(yaw.shape, dtype=torch.float32, device=dev),
     )
 
 
 def _march(grid: OccupancyGrid, start_xy, directions, step: float,
            n_steps: int, max_distance) -> Tuple[torch.Tensor, torch.Tensor]:
-    """March from ``start_xy`` (2,) along each of ``directions`` (D, 2) in
-    fixed micro-steps, stopping at the first colliding (or beyond-max) step.
-    Returns (distance_moved, hit_obstacle), each (D,).
+    """March from ``start_xy`` (..., 2) along each of ``directions``
+    (..., D, 2) in fixed micro-steps, stopping at the first colliding (or
+    beyond-max) step; ``max_distance`` () or (...). Returns
+    (distance_moved, hit_obstacle), each (..., D).
 
     All candidate positions are tested at once; the serial early stop of the
     reference loop is the first blocked step.
     """
     ks = torch.arange(1, n_steps + 1, dtype=torch.float32,
                       device=start_xy.device)
-    dists = torch.minimum(ks * step, max_distance)                 # (n,)
-    pts = (start_xy[None, None, :]
-           + directions[:, None, :] * dists[None, :, None])        # (D, n, 2)
+    md = max_distance[..., None]
+    dists = torch.minimum(ks * step, md)                           # (..., n)
+    pts = (start_xy[..., None, None, :]
+           + directions[..., :, None, :] * dists[..., None, :, None])  # (..., D, n, 2)
     unsafe = check_collision_world(grid, pts)
-    in_range = dists <= max_distance + 1e-9
-    blocked = unsafe & in_range
+    in_range = dists <= md + 1e-9
+    blocked = unsafe & in_range[..., None, :]
     any_block = torch.any(blocked, dim=-1)
     # first blocked step (torch.argmax refuses bool; on ints it returns the
     # first maximum, as jnp.argmax does)
     first_block = torch.argmax(blocked.to(torch.int32), dim=-1)
+    before = torch.gather(dists[..., None, :].expand(blocked.shape), -1,
+                          torch.clamp(first_block - 1, min=0)[..., None])
     moved = torch.where(
         any_block,
-        torch.where(first_block > 0,
-                    dists[torch.clamp(first_block - 1, min=0)],
+        torch.where(first_block > 0, before[..., 0],
                     torch.zeros((), device=dists.device)),
-        torch.minimum(max_distance, dists[-1]))
+        torch.minimum(md, dists[..., -1:]))
     return moved, any_block
 
 
@@ -104,7 +113,9 @@ def apply_cmd(state: AgentState, grid: OccupancyGrid, vx, vy, yaw_rate,
               duration_s) -> AgentState:
     """Execute one velocity command with collision-safe motion, on the
     state's device. Mirrors SimpleVLNEnv.apply_cmd_for +
-    _safe_gradual_movement semantics."""
+    _safe_gradual_movement semantics. A lockstep state of B agents takes
+    (B,) commands (or scalars for all): the same arithmetic per agent, so
+    each agent moves bitwise as it would alone."""
     dev = state.pos.device
 
     def f32(v):
@@ -121,38 +132,43 @@ def apply_cmd(state: AgentState, grid: OccupancyGrid, vx, vy, yaw_rate,
     total_dy = world_vy * duration_s
     intended = torch.sqrt(total_dx * total_dx + total_dy * total_dy)
 
-    start_xy = state.pos[:2]
+    start_xy = state.pos[..., :2]
     moving = intended > MIN_MOVE
     safe_intended = torch.where(moving, intended, f32(1.0))
-    direction = torch.stack([total_dx, total_dy]) / safe_intended
+    direction = torch.stack([total_dx, total_dy], -1) / safe_intended[..., None]
     max_dist = torch.minimum(f32(MAX_STEP_DISTANCE), intended)
 
-    moved_d, hit_d = _march(grid, start_xy, direction[None], DIRECT_STEP,
-                            N_DIRECT_STEPS, max_dist)
-    direct_moved, direct_hit = moved_d[0], hit_d[0]
+    moved_d, hit_d = _march(grid, start_xy, direction[..., None, :],
+                            DIRECT_STEP, N_DIRECT_STEPS, max_dist)
+    direct_moved, direct_hit = moved_d[..., 0], hit_d[..., 0]
 
     # Lateral exploration when direct motion is (near-)fully blocked: the
-    # four directions march in one call, a (4, 10, 2) point set.
-    perp = torch.stack([-direction[1], direction[0]])
+    # four directions march in one call, a (4, 10, 2) point set an agent.
+    perp = torch.stack([-direction[..., 1], direction[..., 0]], -1)
     dirs = torch.stack([
         perp,
         -perp,
         perp * 0.707 + direction * 0.707,
         -perp * 0.707 + direction * 0.707,
-    ])
-    dirs = dirs / (torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True))
-                   + 1e-12)
+    ], -2)
+    # the norm written out: a two-element sum, in one order for any batch
+    norm = torch.sqrt(dirs[..., 0:1] * dirs[..., 0:1]
+                      + dirs[..., 1:2] * dirs[..., 1:2])
+    dirs = dirs / (norm + 1e-12)
     ex_moved, _ = _march(grid, start_xy, dirs, EXPLORE_STEP, N_EXPLORE_STEPS,
                          f32(EXPLORE_MAX))
-    best_i = torch.argmax(ex_moved)
-    best_ex = ex_moved[best_i]
+    best_i = torch.argmax(ex_moved, dim=-1, keepdim=True)
+    best_ex = torch.gather(ex_moved, -1, best_i)[..., 0]
+    best_dir = torch.gather(dirs, -2, best_i[..., None].expand(
+        *best_i.shape, 2))[..., 0, :]
 
     use_direct = direct_moved > 0.01
     use_explore = (~use_direct) & (best_ex > 0.005)
     moved = torch.where(use_direct, direct_moved,
                         torch.where(use_explore, best_ex, f32(0.0)))
-    move_dir = torch.where(use_direct, direction, dirs[best_i])
-    new_xy = torch.where(moving, start_xy + move_dir * moved, start_xy)
+    move_dir = torch.where(use_direct[..., None], direction, best_dir)
+    new_xy = torch.where(moving[..., None], start_xy + move_dir
+                         * moved[..., None], start_xy)
 
     # Collision accounting: a blocked direct march is the collision event that
     # the reference records via check_collision_3d inside _is_position_safe
@@ -172,7 +188,7 @@ def apply_cmd(state: AgentState, grid: OccupancyGrid, vx, vy, yaw_rate,
     new_yaw = torch.remainder(new_yaw + math.pi, 2.0 * math.pi) - math.pi
 
     return AgentState(
-        pos=torch.cat([new_xy, state.pos[2:3]]),
+        pos=torch.cat([new_xy, state.pos[..., 2:3]], -1),
         yaw=new_yaw,
         consecutive_collisions=cc.to(torch.int32),
         total_collisions=state.total_collisions

@@ -140,26 +140,34 @@ def agent_camera_t(
 ) -> Camera:
     """Agent camera from tensors (``agent_camera_jnp`` in the JAX package):
     the pose stays on its device, so a rollout builds cameras without a host
-    round trip. Same geometry as ``agent_camera``."""
+    round trip. Same geometry as ``agent_camera``. ``agent_xy`` (..., 2) and
+    ``yaw`` (...) may carry a leading batch axis: (B, 2) and (B,) give a
+    stacked Camera of B poses (``agent_camera_jnp`` under ``vmap``), each
+    camera bitwise the one its pose gives alone."""
     agent_xy = torch.as_tensor(agent_xy, dtype=torch.float32)
     dev = agent_xy.device
     yaw = torch.as_tensor(yaw, dtype=torch.float32, device=dev)
     cy_, sy_ = torch.cos(yaw), torch.sin(yaw)
     p = torch.tensor(np.float32(pitch), device=dev)
     cp, sp = torch.cos(p), torch.sin(p)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    forward = torch.stack([cy_ * cp, sy_ * cp, -sp])
+    zero = torch.zeros_like(yaw)
+    forward = torch.stack([cy_ * cp, sy_ * cp, (-sp).expand(yaw.shape)],
+                          dim=-1)
     # right = normalize(forward x up); z-up world => right = (sin, -cos, 0)
-    right = torch.stack([sy_, -cy_, zero])
-    down = torch.linalg.cross(forward, right)
-    R = torch.stack([right, down, forward], dim=1)
+    right = torch.stack([sy_, -cy_, zero], dim=-1)
+    down = torch.linalg.cross(forward, right, dim=-1)
+    R = torch.stack([right, down, forward], dim=-1)
     fx = width * focal_mm / horizontal_aperture_mm
+
+    def field(v):
+        return _scalar(v, dev).expand(yaw.shape).clone()
+
     return Camera(
-        position=torch.stack([agent_xy[0], agent_xy[1],
-                              zero + np.float32(camera_height)]),
+        position=torch.stack([agent_xy[..., 0], agent_xy[..., 1],
+                              zero + np.float32(camera_height)], dim=-1),
         cam_to_world=R,
-        fx=_scalar(fx, dev), fy=_scalar(fx, dev),
-        cx=_scalar(width / 2.0, dev), cy=_scalar(height / 2.0, dev),
+        fx=field(fx), fy=field(fx),
+        cx=field(width / 2.0), cy=field(height / 2.0),
         width=int(width), height=int(height), near=near, far=far,
     )
 
@@ -184,6 +192,12 @@ def unstack_cameras(cameras: Camera) -> list:
     return [cameras._replace(**{f: getattr(cameras, f)[i]
                                 for f in _TENSOR_FIELDS})
             for i in range(cameras.position.shape[0])]
+
+
+def slice_cameras(cameras: Camera, sl: slice) -> Camera:
+    """The cameras ``sl`` of a stacked batch, still stacked."""
+    return cameras._replace(**{f: getattr(cameras, f)[sl]
+                               for f in _TENSOR_FIELDS})
 
 
 def camera_from_numpy(arrays: dict, device=None) -> Camera:

@@ -14,6 +14,14 @@ All three are differentiable w.r.t. the scene parameters.
 
 ``render`` runs where the scene's tensors are. On a CPU scene the ``cuda``
 backend runs the kernels' plain versions.
+
+``render_batch`` renders a stacked camera batch. On the ``cuda`` backend
+(``sequential=False``, the default) that is the JAX package's ``vmap``:
+``render`` of the stacked camera, which projects, bins and composites all
+cameras at once (one K1, one K2 and, under autograd, one K3 and one K4
+launch a group of cameras, two host reads), each camera bitwise what it
+gives alone. ``sequential=True`` renders camera by camera (the JAX
+package's ``lax.map``); the ``torch`` and ``oracle`` backends always do.
 """
 
 from __future__ import annotations
@@ -24,11 +32,11 @@ import torch
 
 from ..ops.binning import (EMIT_BUDGET_KEYS, _pick_budgets, _pow2_at_least,
                            bin_gaussians, pair_count_stats)
-from ..ops.composite_cuda import composite_tiles_cuda
+from ..ops.composite_cuda import GID_LIMIT, composite_tiles_cuda
 from ..ops.composite_ref import composite_reference
 from ..ops.composite_torch import composite_tiles
 from ..ops.projection import project_gaussians
-from .camera import Camera, unstack_cameras
+from .camera import Camera, slice_cameras, unstack_cameras
 from .scene import GaussianScene
 
 
@@ -83,6 +91,25 @@ def autotune_all(scene: GaussianScene, camera: Camera,
     return budgets
 
 
+# Gaussian rows (cameras x Gaussians) a group of ``autotune_poses`` probes
+# at most: its passes hold every probed camera's projection, emission table
+# and kept pairs at once (4 cameras at 1M Gaussians).
+PROBE_ROWS = 1 << 22
+
+
+def camera_groups(n_cams: int, n_gauss: int,
+                  max_rows: Optional[int] = None) -> list:
+    """Slices of whole cameras that one batched ``cuda`` render takes: the
+    backward routes gradients by a float32 row id, exact only below
+    ``GID_LIMIT`` rows, so a group holds at most (GID_LIMIT - 1) // N cameras
+    (16 at 1M Gaussians), and at most ``max_rows`` // N where given; one
+    camera a group where N alone reaches the limit (the compositor then
+    refuses it, as for one camera)."""
+    rows = GID_LIMIT - 1 if max_rows is None else min(GID_LIMIT - 1, max_rows)
+    size = max(1, rows // max(n_gauss, 1))
+    return [slice(i, min(i + size, n_cams)) for i in range(0, n_cams, size)]
+
+
 @torch.no_grad()
 def autotune_poses(scene: GaussianScene, cameras: Camera,
                    pair_margin: float = 1.5,
@@ -92,36 +119,41 @@ def autotune_poses(scene: GaussianScene, cameras: Camera,
     poses): the budgets cover the worst pose, and ``pair_capacity`` /
     ``tile_capacity`` are the worst measured pose x ``pair_margin``.
     ``grad_margin`` also sizes ``grad_capacity`` from the worst pose's
-    ``cuda`` forward."""
-    cams = unstack_cameras(cameras)
-    stats = []
-    for c in cams:
-        proj = project_gaussians(scene, c, sh_degree=sh_degree)
-        stats.append(_host_stats(pair_count_stats(proj, c.width, c.height)))
-    worst = {
-        "n_visible": max(int(s["n_visible"]) for s in stats),
-        "max_count": max(int(s["max_count"]) for s in stats),
-        "exceed": [max(int(s["exceed"][i]) for s in stats)
-                   for i in range(len(stats[0]["exceed"]))],
-        "sum_count_parts": [max(int(s["sum_count_parts"].sum()) for s in stats)],
-    }
-    budgets = _pick_budgets(worst, scene.num_gaussians)
+    ``cuda`` forward.
 
-    max_tile, n_pairs = 0, 0
-    for c in cams:
-        bins = _bin_with(project_gaussians(scene, c, sh_degree=sh_degree), c,
-                         budgets)
-        max_tile = max(max_tile, int(torch.max(bins.tile_count)))
-        n_pairs = max(n_pairs, int(bins.n_pairs))
+    The poses are probed in ``camera_groups`` of at most ``PROBE_ROWS``
+    Gaussian rows: each group is one batched projection with its pair
+    counts, one batched binning and (with ``grad_margin``) one batched
+    ``cuda`` forward, and the host reads a few values a group, not two a
+    pose."""
+    groups = camera_groups(cameras.position.shape[0], scene.num_gaussians,
+                           PROBE_ROWS)
+    rows = [pair_count_stats(
+        project_gaussians(scene, slice_cameras(cameras, sl),
+                          sh_degree=sh_degree), cameras.width, cameras.height)
+        for sl in groups]
+    # each statistic's worst pose
+    stats = {k: torch.cat([r[k] for r in rows]).amax(0) for k in rows[0]}
+    budgets = _pick_budgets(_host_stats(stats), scene.num_gaussians)
+
+    worst = []
+    for sl in groups:
+        cams = slice_cameras(cameras, sl)
+        bins = _bin_with(project_gaussians(scene, cams, sh_degree=sh_degree),
+                         cams, budgets)
+        worst.append(torch.stack([bins.tile_count.max().to(torch.int64),
+                                  bins.n_pairs.max().to(torch.int64)]))
+    max_tile, n_pairs = (int(v) for v in torch.stack(worst).amax(0).cpu())
     budgets["tile_capacity"] = _pow2_at_least(int(max_tile * pair_margin))
     budgets["n_pairs_measured"] = n_pairs
     tight = -(-int(n_pairs * pair_margin + 256) // 128) * 128
     budgets["pair_capacity"] = min(budgets["pair_capacity"], tight)
 
     if grad_margin is not None:
-        chunks = max(int(render(scene, c, backend="cuda", sh_degree=sh_degree,
-                                **budget_kwargs(budgets))["grad_chunks"])
-                     for c in cams)
+        chunks = int(torch.cat([
+            render(scene, slice_cameras(cameras, sl), backend="cuda",
+                   sh_degree=sh_degree, **budget_kwargs(budgets))
+            ["grad_chunks"] for sl in groups]).max())
         budgets["grad_capacity"] = -(-int(chunks * grad_margin + 64) // 64) * 64
         budgets["grad_chunks_measured"] = chunks
     return budgets
@@ -181,8 +213,17 @@ def render(
     ``grad_sort`` (``"f32"`` default, ``"f16"``, ``"bf16"``; alias
     ``grad_sort_bf16``) and ``grad_capacity`` set the ``cuda`` backend's
     backward; other backends ignore them.
+
+    On the ``cuda`` backend ``camera`` may be a stacked batch of B cameras
+    (``render_batch``'s batched path): every output then has a leading
+    camera axis, ``overflow`` and ``grad_chunks`` are (B,), the budgets
+    apply per camera, and each camera's outputs are bitwise its own render.
     """
     width, height = camera.width, camera.height
+    single = camera.position.dim() == 1
+    if not single and backend != "cuda":
+        raise ValueError(f"render: the {backend} backend takes one camera; "
+                         "render_batch renders a stacked batch")
     dev = scene.device
     proj = project_gaussians(scene, camera, sh_degree=sh_degree,
                              clamp_dims=clamp_dims)
@@ -191,13 +232,15 @@ def render(
         out = composite_reference(proj, scene.semantic_ids, width, height)
         overflow = torch.zeros((), dtype=torch.int32, device=dev)
     elif backend in ("torch", "cuda"):
+        # bins and the cuda compositor's outputs carry a leading camera axis
+        # (B = 1 for one camera), taken off once below
         bins = bin_gaussians(proj, width, height, k_small=k_small,
                              m_big=m_big, k_big=k_big, m_mid=m_mid,
                              k_mid=k_mid)
         if backend == "torch":
-            out = composite_tiles(proj, scene.semantic_ids, bins, width,
-                                  height, tile_capacity=tile_capacity,
-                                  chunk=chunk)
+            out = {k: v[None] for k, v in composite_tiles(
+                proj, scene.semantic_ids, bins, width, height,
+                tile_capacity=tile_capacity, chunk=chunk).items()}
         else:
             if pair_capacity is None:
                 pair_capacity = default_pair_capacity(scene.num_gaussians,
@@ -209,11 +252,16 @@ def render(
                                        grad_sort=grad_sort,
                                        grad_capacity=grad_capacity)
         overflow = (bins.overflow + out.pop("tile_overflow")).to(torch.int32)
+        if single:
+            out = {k: v[0] for k, v in out.items()}
+            overflow = overflow[0]
     else:
         raise ValueError(f"unknown backend: {backend}")
 
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    rgb = out["rgb"] + out["trans"][..., None] * bg
+    # the background per channel from Python numbers: a tensor of them
+    # would be a host-to-device copy, which waits for the card
+    rgb = torch.stack([out["rgb"][..., i] + out["trans"] * float(c)
+                       for i, c in enumerate(bg_color)], -1)
     depth = out["depth_acc"] + out["trans"] * camera.far
     grad_chunks = out.pop("grad_chunks", None)
     return {
@@ -234,11 +282,23 @@ def render_batch(scene: GaussianScene, cameras: Camera,
                  sequential: bool = False, **kw) -> Dict[str, torch.Tensor]:
     """Render a stacked Camera batch; outputs carry a leading camera axis.
 
-    Both modes render the cameras one after the other: ``sequential`` is kept
-    for the JAX package's signature, where it chose ``lax.map`` over
-    ``vmap``.
+    On the ``cuda`` backend (the default) the batch renders together, the
+    counterpart of the JAX package's ``vmap``: each group of
+    ``camera_groups`` (all cameras while B·N < 2^24) is one ``render`` of the
+    stacked cameras, which launches K1 and K2 once and, under autograd, K3
+    and K4 once, and reads the host twice. Every camera's outputs, overflow
+    and ``grad_chunks`` are bitwise its own ``render``; the budgets apply per
+    camera. ``sequential=True`` renders the cameras one after the other (the
+    JAX package's ``lax.map``), as the ``torch`` and ``oracle`` backends
+    always do.
     """
-    del sequential
+    if kw.get("backend", "cuda") == "cuda" and not sequential:
+        groups = camera_groups(cameras.position.shape[0], scene.num_gaussians)
+        outs = [render(scene, slice_cameras(cameras, sl), **kw)
+                for sl in groups]
+        if len(outs) == 1:
+            return outs[0]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
     outs = [render(scene, c, **kw) for c in unstack_cameras(cameras)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 

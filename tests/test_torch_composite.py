@@ -132,6 +132,8 @@ def test_composite_tiles_cuda_matches_pallas(case, kw):
     got = tcu.composite_tiles_cuda(tproj, torch.from_numpy(np.array(sem)), tbins,
                                    cam.width, cam.height, tile_capacity=1024,
                                    **kw)
+    assert got["rgb"].shape == (1, cam.height, cam.width, 3)
+    got = {k: v[0] for k, v in got.items()}     # the one camera
     assert int(got["grad_chunks"]) == int(want["grad_chunks"])
     assert int(got["tile_overflow"]) == int(want["tile_overflow"])
     if kw.get("pair_capacity") == 256 or kw.get("grad_capacity"):
@@ -183,6 +185,7 @@ def test_cuda_backend_gradient_matches_pallas():
     out = tcu.composite_tiles_cuda(tproj._replace(**p),
                                    torch.from_numpy(np.array(sem)), tbins,
                                    cam.width, cam.height)
+    out = {k: v[0] for k, v in out.items()}     # the one camera
     (torch.sum(out["rgb"] * torch.from_numpy(wts))
      + 0.1 * torch.sum(out["depth_acc"]) + 0.2 * torch.sum(out["alpha"])
      - 0.3 * torch.sum(out["trans"])).backward()

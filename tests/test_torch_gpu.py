@@ -540,7 +540,8 @@ def test_waypoint_images_on_the_card_match_cpu(tmp_path):
                                            batch_size=4, device=dev, **kw)
         if dev == "cuda":
             torch.cuda.synchronize()
-            assert binning.emit_tile_pairs.launches == before + 4
+            # the 4 waypoints are one batch: one batched render, one K1
+            assert binning.emit_tile_pairs.launches == before + 1
     assert metas["cuda"]["total_overflow"] == metas["cpu"]["total_overflow"] == 0
     assert metas["cuda"] == metas["cpu"]
     for f in metas["cpu"]["trajectories"]["0"]["frames"]:
@@ -677,3 +678,113 @@ def test_band_render_on_a_gloo_mesh_on_the_card():
     assert int(got["overflow"]) == 0 and int(ref["overflow"]) == 0
     for k in ("rgb", "alpha"):
         assert float((got[k] - ref[k]).abs().max()) <= 2e-4, k
+
+
+def _batch_cameras(width=320, height=256):
+    from sage3d_tpu_torch.renderer.camera import agent_camera, stack_cameras
+    cams = [agent_camera(xy, yaw, width=width, height=height, device="cuda")
+            for xy, yaw in (((0.0, -3.5), 1.3), ((0.5, -3.0), 1.8),
+                            ((-1.0, -3.2), 1.0))]
+    return cams, stack_cameras(cams)
+
+
+def test_batched_render_is_each_render_bitwise_on_the_card():
+    _need_card("K1 and K2 with a camera axis")
+    scene = synthetic_room(20_000, seed=5, device="cuda")
+    cams, stacked = _batch_cameras()
+    bk = trender.budget_kwargs(trender.autotune_poses(scene, stacked))
+    launches = (binning.emit_tile_pairs.launches,
+                composite_cuda.composite_fwd.launches)
+    with torch.no_grad():
+        got = trender.render_batch(scene, stacked, backend="cuda", **bk)
+        torch.cuda.synchronize()
+        assert (binning.emit_tile_pairs.launches,
+                composite_cuda.composite_fwd.launches) == tuple(
+                    n + 1 for n in launches)
+        assert got["overflow"].tolist() == [0, 0, 0]
+        for b, cam in enumerate(cams):
+            one = trender.render(scene, cam, backend="cuda", **bk)
+            for k in ("rgb", "depth", "alpha", "semantic", "trans",
+                      "overflow", "grad_chunks"):
+                assert torch.equal(got[k][b], one[k]), (b, k)
+        # K1 and K2 with the camera axis against their plain versions
+        proj = project_gaussians(scene, stacked)
+        plan = binning.emission_plan(
+            proj, cams[0].width, cams[0].height,
+            **{k: bk[k] for k in binning.EMIT_BUDGET_KEYS})
+        args = (plan.table, plan.offsets, plan.n_live, plan.tiles_x)
+        for mult in {plan.mult, 0}:
+            want = _sorted_pairs(*binning.emit_tile_pairs_plain(*args, mult))
+            pairs = _sorted_pairs(*binning.emit_tile_pairs(*args, mult))
+            assert torch.equal(pairs[0], want[0])
+            assert torch.equal(pairs[1], want[1])
+        bins = binning.bin_gaussians(
+            proj, cams[0].width, cams[0].height,
+            **{k: bk[k] for k in binning.EMIT_BUDGET_KEYS})
+        k2_args = (composite_cuda.attribute_table(proj, scene.semantic_ids),
+                   *composite_cuda.trim_to_capacity(bins)[:3], bins.tiles_x)
+        n_tiles = bins.tiles_x * bins.tiles_y
+        out, kend = composite_cuda.composite_fwd(*k2_args, cam_tiles=n_tiles)
+        want_out, want_kend = composite_cuda.composite_fwd_plain(
+            *k2_args, cam_tiles=n_tiles)
+        assert float((kend != want_kend).float().mean()) <= 1e-3
+        torch.testing.assert_close(out[:, :6], want_out[:, :6], rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_batched_backward_on_the_card_matches_the_per_camera_loop():
+    _need_card("K3 and K4 over a camera batch")
+    scene = synthetic_room(20_000, seed=5, device="cuda")
+    cams, stacked = _batch_cameras()
+    bk = trender.budget_kwargs(trender.autotune_poses(scene, stacked,
+                                                      grad_margin=1.5))
+
+    def grads(render_all):
+        params = {k: getattr(scene, k).clone().requires_grad_()
+                  for k in PARAMS}
+        for rgb in render_all(scene._replace(**params)):
+            torch.sum((rgb - 0.5) ** 2).backward()
+        return {k: params[k].grad for k in PARAMS}
+
+    before = (composite_cuda.composite_bwd.launches,
+              segreduce.segment_reduce_sorted.launches)
+    got = grads(lambda s: [trender.render_batch(s, stacked, backend="cuda",
+                                                **bk)["rgb"]])
+    torch.cuda.synchronize()
+    assert (composite_cuda.composite_bwd.launches,
+            segreduce.segment_reduce_sorted.launches) == tuple(
+                n + 1 for n in before)
+    want = grads(lambda s: [trender.render(s, c, backend="cuda", **bk)["rgb"]
+                            for c in cams])
+    for k in PARAMS:
+        scale = float(want[k].abs().max())
+        assert scale > 0 and float((got[k] - want[k]).abs().max()) <= \
+            1e-5 * scale, k
+
+
+def test_lockstep_rollout_on_the_card_is_each_rollout_bitwise():
+    from sage3d_tpu_torch.env.rollout import rollout, rollout_batch
+    from sage3d_tpu_torch.ops import collision
+    from sage3d_tpu_torch.physics.occupancy import grid_from_mask
+    _need_card("the lockstep rollout (K1, K2, K6)")
+    mask = np.zeros((200, 200), np.uint8)
+    mask[:2], mask[-2:], mask[:, :2], mask[:, -2:] = 1, 1, 1, 1
+    scene = synthetic_room(20_000, seed=13, device="cuda")
+    grid = grid_from_mask(mask, bounds=[-5.0, 5.0, -5.0, 5.0], device="cuda")
+    starts = np.array([[2.0, 2.0], [-2.0, 2.0], [0.0, -3.0], [3.0, -3.0],
+                       [-3.0, -1.0]], np.float32)
+    yaws = np.array([0.0, 1.0, 1.57, 3.0, -1.0], np.float32)
+    goals = -starts
+    kw = dict(n_steps=6, width=160, height=120, pair_capacity=1 << 19,
+              tile_capacity=1 << 14, device="cuda")
+    before = (binning.emit_tile_pairs.launches,
+              collision.capsule_best.launches)
+    got = rollout_batch(scene, grid, starts, yaws, goals, **kw)
+    torch.cuda.synchronize()
+    assert (binning.emit_tile_pairs.launches,
+            collision.capsule_best.launches) == (before[0] + 6,
+                                                 before[1] + 6)
+    for b in range(len(starts)):
+        one = rollout(scene, grid, starts[b], yaws[b], goals[b], **kw)
+        for k in one:
+            assert torch.equal(got[k][b], one[k]), (b, k)
