@@ -34,6 +34,7 @@ from ..physics.occupancy import OccupancyGrid
 from ..renderer.camera import agent_camera_t
 from ..renderer.render import render_batch
 from ..renderer.scene import GaussianScene, resolve_device
+from ..utils.profiling import span
 
 
 def _exact_mean(x: torch.Tensor) -> torch.Tensor:
@@ -163,33 +164,43 @@ def _lockstep(scene, grid, start_xy, start_yaw, goal_xy, n_steps=100,
     overflow = torch.zeros((n_ep,), dtype=torch.int32, device=dev)
     with torch.no_grad():
         for _ in range(n_steps):
-            cams = agent_camera_t(state.pos[:, :2], state.yaw, width=width,
-                                  height=height)
-            out = render_batch(render_scene, cams, backend=backend, **budgets)
-            overflow = overflow + out["overflow"]
-            vx, yaw_rate = depth_seek_policy(out["depth"], state.pos[:, :2],
-                                             state.yaw, goal)
-            state = apply_cmd(state, grid, vx, 0.0, yaw_rate, duration_s)
-            if use_capsule:
-                p0, p1, r = agent_capsule(state.pos[:, :2], device=dev)
-                if collision_accel is not None:
-                    # spatially-pruned query: only chunks near the agents
-                    # run; clearance is margin-clipped
-                    q = capsule_query_pruned(collision_accel, p0, p1, r,
-                                             prune_margin=prune_margin,
-                                             device=dev)
-                else:
-                    q = capsule_query(scene, p0, p1, r, device=dev)
-                clearance = q["clearance"]
-            else:
-                clearance = torch.full((n_ep,), BIG, device=dev)
-            to_goal = state.pos[:, :2] - goal
-            metrics["positions"].append(state.pos)
-            metrics["collisions"].append(state.collision_detected)
-            metrics["min_clearance"].append(clearance)
-            metrics["goal_distance"].append(torch.sqrt(
-                to_goal[:, 0] * to_goal[:, 0] + to_goal[:, 1] * to_goal[:, 1]))
-            metrics["mean_depth"].append(_exact_mean(out["depth"]))
+            with span("rollout.step", unit=True):
+                with span("rollout.camera"):
+                    cams = agent_camera_t(state.pos[:, :2], state.yaw,
+                                          width=width, height=height)
+                out = render_batch(render_scene, cams, backend=backend,
+                                   **budgets)
+                overflow = overflow + out["overflow"]
+                with span("rollout.policy"):
+                    vx, yaw_rate = depth_seek_policy(
+                        out["depth"], state.pos[:, :2], state.yaw, goal)
+                with span("rollout.motion"):
+                    state = apply_cmd(state, grid, vx, 0.0, yaw_rate,
+                                      duration_s)
+                with span("rollout.collision"):
+                    if use_capsule:
+                        p0, p1, r = agent_capsule(state.pos[:, :2],
+                                                  device=dev)
+                        if collision_accel is not None:
+                            # spatially-pruned query: only chunks near the
+                            # agents run; clearance is margin-clipped
+                            q = capsule_query_pruned(
+                                collision_accel, p0, p1, r,
+                                prune_margin=prune_margin, device=dev)
+                        else:
+                            q = capsule_query(scene, p0, p1, r, device=dev)
+                        clearance = q["clearance"]
+                    else:
+                        clearance = torch.full((n_ep,), BIG, device=dev)
+                with span("rollout.metrics"):
+                    to_goal = state.pos[:, :2] - goal
+                    metrics["positions"].append(state.pos)
+                    metrics["collisions"].append(state.collision_detected)
+                    metrics["min_clearance"].append(clearance)
+                    metrics["goal_distance"].append(torch.sqrt(
+                        to_goal[:, 0] * to_goal[:, 0]
+                        + to_goal[:, 1] * to_goal[:, 1]))
+                    metrics["mean_depth"].append(_exact_mean(out["depth"]))
     result = {"final_pos": state.pos, "final_yaw": state.yaw,
               "total_collisions": state.total_collisions}
     result.update({k: torch.stack(v, 1) for k, v in metrics.items()})

@@ -35,6 +35,7 @@ from ..physics.occupancy import OccupancyGrid, grid_from_semantic_map
 from ..renderer.camera import agent_camera_t
 from ..renderer.render import budget_kwargs, render, rgb_to_uint8
 from ..renderer.scene import GaussianScene, load_ply, resolve_device
+from ..utils.profiling import span
 from ..utils.transforms import yaw_from_world_quat
 
 
@@ -141,47 +142,60 @@ class GaussianVLNEnv:
         self._video_frames = []
 
     def get_agent_pos(self) -> np.ndarray:
-        return self.state.pos.cpu().numpy()
+        with span("env.read_pose"):
+            return self.state.pos.cpu().numpy()
 
     def get_yaw(self) -> float:
-        return float(self.state.yaw)
+        with span("env.read_pose"):
+            return float(self.state.yaw)
 
     # -- capture ------------------------------------------------------------
     @torch.no_grad()
     def render_frame(self) -> Dict[str, torch.Tensor]:
         """One render pass from the agent's pose: rgb + depth + semantic +
         alpha (geometry identical to agent_camera; tested)."""
-        cam = agent_camera_t(
-            self.state.pos[:2], self.state.yaw, width=self.width,
-            height=self.height, focal_mm=self.focal_mm,
-            camera_height=self.camera_height)
-        out = render(self.scene, cam, backend=self.backend, **self.render_kw)
-        self.total_overflow += out["overflow"]
+        with span("env.render_frame"):
+            cam = agent_camera_t(
+                self.state.pos[:2], self.state.yaw, width=self.width,
+                height=self.height, focal_mm=self.focal_mm,
+                camera_height=self.camera_height)
+            out = render(self.scene, cam, backend=self.backend,
+                         **self.render_kw)
+            self.total_overflow += out["overflow"]
         return out
+
+    @staticmethod
+    def _read_frame(image: torch.Tensor) -> np.ndarray:
+        with span("env.read_frame"):
+            return image.cpu().numpy()
 
     def get_rgb(self) -> np.ndarray:
         out = self.render_frame()
-        frame = rgb_to_uint8(out["rgb"]).cpu().numpy()
+        frame = self._read_frame(rgb_to_uint8(out["rgb"]))
         if self._record_video:
             self._video_frames.append(frame)
         return frame
 
     def get_depth(self) -> np.ndarray:
-        return self.render_frame()["depth"].cpu().numpy()
+        return self._read_frame(self.render_frame()["depth"])
 
     def get_rgbd(self):
         out = self.render_frame()
-        rgb = rgb_to_uint8(out["rgb"]).cpu().numpy()
+        rgb = self._read_frame(rgb_to_uint8(out["rgb"]))
         if self._record_video:
             self._video_frames.append(rgb)
-        return rgb, out["depth"].cpu().numpy()
+        return rgb, self._read_frame(out["depth"])
 
     def get_semantic(self) -> np.ndarray:
-        return self.render_frame()["semantic"].cpu().numpy()
+        return self._read_frame(self.render_frame()["semantic"])
 
     # -- stepping -----------------------------------------------------------
     def apply_cmd_for(self, vx: float, vy: float, yaw_rate: float,
                       duration_s: float) -> None:
+        with span("env.apply_cmd_for", unit=True):
+            self._apply_cmd_for(vx, vy, yaw_rate, duration_s)
+
+    def _apply_cmd_for(self, vx, vy, yaw_rate, duration_s) -> None:
         if self.grid is None:
             # collision disabled: integrate freely (reference
             # --disable-collision, simple_env.py:2682-2686)
@@ -216,7 +230,8 @@ class GaussianVLNEnv:
             time_s=torch.zeros_like(self.state.time_s))
 
     def get_collision_count(self) -> int:
-        return int(self.state.total_collisions)
+        with span("env.read_collisions"):
+            return int(self.state.total_collisions)
 
     @property
     def consecutive_collisions(self) -> int:

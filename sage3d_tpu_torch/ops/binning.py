@@ -43,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count as add_count, span
 from . import _build
 from .projection import ALPHA_MIN, ProjectedGaussians
 
@@ -415,9 +416,12 @@ def emission_plan(
     dropped_whole = torch.sum(torch.where(vis & ~small, count64, 0),
                               dim=1) - covered
     overflow = clipped_big + dropped_whole
-    return EmissionPlan(table, offsets, int(offsets[-1]), tiers, tiles_x,
-                        tiles_y, (1 << rank_bits) if fused_ok else 0,
-                        overflow)
+    with span("binning.read_live"):
+        n_live = int(offsets[-1])
+        add_count("binning.live_slots", n_live)
+        add_count("binning.cameras", n_cams)
+    return EmissionPlan(table, offsets, n_live, tiers, tiles_x, tiles_y,
+                        (1 << rank_bits) if fused_ok else 0, overflow)
 
 
 def bin_gaussians(
@@ -449,7 +453,9 @@ def bin_gaussians(
     mult = plan.mult
     keys, gauss, n_kept = emit_tile_pairs(plan.table, plan.offsets,
                                           plan.n_live, plan.tiles_x, mult)
-    kept = int(n_kept)
+    with span("binning.read_kept"):
+        kept = int(n_kept)
+        add_count("binning.kept_pairs", kept)
     if kept >= PAIR_LIMIT:
         raise ValueError(
             f"bin_gaussians: {n_cams} camera(s) keep {kept} pairs, past the "

@@ -44,6 +44,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..renderer.scene import GaussianScene, resolve_device
+from ..utils.profiling import span
 from . import _build
 
 DEFAULT_OPACITY_THRESH = 0.5
@@ -401,12 +402,13 @@ def capsule_query(
       nearest_id: semantic id of the minimum-clearance Gaussian (-1 if none).
     """
     dev = _check_device(scene.means, device, "the scene")
-    q = _queries(p0, p1, radius, dev)
-    with torch.no_grad():
-        best = capsule_best(tuple(t.detach() for t in q), _columns(scene),
-                            opacity_thresh, sigma_cut, pass_size=chunk,
-                            ids=scene.semantic_ids)
-    return _result(scene, best, q, opacity_thresh, sigma_cut)
+    with span("collision.query"):
+        q = _queries(p0, p1, radius, dev)
+        with torch.no_grad():
+            best = capsule_best(tuple(t.detach() for t in q),
+                                _columns(scene), opacity_thresh, sigma_cut,
+                                pass_size=chunk, ids=scene.semantic_ids)
+        return _result(scene, best, q, opacity_thresh, sigma_cut)
 
 
 class CollisionAccel(NamedTuple):
@@ -535,14 +537,16 @@ def capsule_query_pruned(
     """
     scene = accel.scene
     dev = _check_device(scene.means, device, "the collision accel")
-    q = _queries(p0, p1, radius, dev)
-    with torch.no_grad():
-        best = capsule_best(
-            tuple(t.detach() for t in q), _columns(scene), opacity_thresh,
-            sigma_cut, prune=(accel.aabb_min, accel.aabb_max, accel.max_scale,
-                   prune_margin), ids=scene.semantic_ids)
-    out = _result(scene, best, q, opacity_thresh, sigma_cut,
-                  margin=prune_margin)
+    with span("collision.query"):
+        q = _queries(p0, p1, radius, dev)
+        with torch.no_grad():
+            best = capsule_best(
+                tuple(t.detach() for t in q), _columns(scene),
+                opacity_thresh, sigma_cut,
+                prune=(accel.aabb_min, accel.aabb_max, accel.max_scale,
+                       prune_margin), ids=scene.semantic_ids)
+        out = _result(scene, best, q, opacity_thresh, sigma_cut,
+                      margin=prune_margin)
     out["chunks_visited"] = best.visited
     return out
 

@@ -40,6 +40,7 @@ from typing import Dict
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .binning import TILE_H, TILE_W, TileBins
 from .projection import ALPHA_MAX, ALPHA_MIN, ProjectedGaussians
@@ -446,11 +447,13 @@ class _AttrComposite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout, _gkend):
-        attrs, pair_gauss, tile_start, tile_count, kend, out = ctx.saved_tensors
-        d_attrs = composite_vjp(attrs, pair_gauss, tile_start, tile_count,
-                                kend, out, gout.contiguous(), ctx.tiles_x,
-                                ctx.c_cap, ctx.grad_sort, ctx.cam_tiles,
-                                ctx.groups)
+        with span("composite.backward"):
+            attrs, pair_gauss, tile_start, tile_count, kend, out = \
+                ctx.saved_tensors
+            d_attrs = composite_vjp(attrs, pair_gauss, tile_start,
+                                    tile_count, kend, out, gout.contiguous(),
+                                    ctx.tiles_x, ctx.c_cap, ctx.grad_sort,
+                                    ctx.cam_tiles, ctx.groups)
         return d_attrs, None, None, None, None, None, None, None, None
 
 

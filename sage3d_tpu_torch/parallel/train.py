@@ -35,6 +35,7 @@ from ..ops.binning import TILE_H
 from ..renderer.camera import Camera, unstack_cameras
 from ..renderer.render import render, render_batch
 from ..renderer.scene import GaussianScene
+from ..utils.profiling import span
 from .mesh import (Mesh, all_reduce, gather_into, make_mesh,
                    reduce_scatter_into, shard_rows)
 
@@ -252,23 +253,30 @@ def make_train_step(template: GaussianScene, camera: Camera, mesh=None,
                 targets, (0, 0, 0, 0, 0, n_tile * band_h - targets.shape[1]))
         if backend == "cuda":
             cams = cam_batch._replace(cy=cam_batch.cy - y0, height=band_h)
-            out = render_batch(scene, cams, backend=backend,
-                               clamp_dims=(width, height), **render_kw)
-            err = torch.sum(((out["rgb"] - targets[:, y0:y0 + band_h]) ** 2)
-                            * mask)
+            with span("train.forward"):
+                out = render_batch(scene, cams, backend=backend,
+                                   clamp_dims=(width, height), **render_kw)
+            with span("train.loss"):
+                err = torch.sum(((out["rgb"] - targets[:, y0:y0 + band_h])
+                                 ** 2) * mask)
             if err.requires_grad:   # else no Gaussian reaches this band
-                (err / n_px).backward()
+                with span("train.backward"):
+                    (err / n_px).backward()
             return err.detach()
         total = torch.zeros((), dtype=torch.float32, device=targets.device)
         for cam, target in zip(unstack_cameras(cam_batch), targets):
             if y0:
                 cam = cam._replace(cy=cam.cy - y0)
-            out = render(scene, cam._replace(height=band_h), backend=backend,
-                         clamp_dims=(width, height), **render_kw)
-            err = torch.sum(((out["rgb"] - target[y0:y0 + band_h]) ** 2)
-                            * mask)
+            with span("train.forward"):
+                out = render(scene, cam._replace(height=band_h),
+                             backend=backend, clamp_dims=(width, height),
+                             **render_kw)
+            with span("train.loss"):
+                err = torch.sum(((out["rgb"] - target[y0:y0 + band_h]) ** 2)
+                                * mask)
             if err.requires_grad:   # else no Gaussian reaches this band
-                (err / n_px).backward()
+                with span("train.backward"):
+                    (err / n_px).backward()
             total = total + err.detach()
         return total
 
@@ -298,13 +306,16 @@ def make_train_step(template: GaussianScene, camera: Camera, mesh=None,
     loss_and_grads = direct_loss if mesh is None else sharded_loss
 
     def _step(state, cam_batch, targets, adc: bool):
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
-        loss = loss_and_grads(state, cam_batch, targets)
-        gnorm = None
-        if adc:
-            gnorm = torch.linalg.vector_norm(state.params["means"].grad, dim=-1)
-        opt.step()
+        with span("train.step", unit=True):
+            opt = state.opt_state
+            opt.zero_grad(set_to_none=True)
+            loss = loss_and_grads(state, cam_batch, targets)
+            gnorm = None
+            if adc:
+                gnorm = torch.linalg.vector_norm(state.params["means"].grad,
+                                                 dim=-1)
+            with span("train.optimizer"):
+                opt.step()
         return TrainState(state.params, opt, state.step + 1), loss, gnorm
 
     def train_step(state: TrainState, cam_batch: Camera,

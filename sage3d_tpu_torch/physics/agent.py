@@ -34,6 +34,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..renderer.scene import resolve_device
+from ..utils.profiling import span
 from .occupancy import OccupancyGrid, check_collision_world
 
 MAX_STEP_DISTANCE = 0.20     # meters per command (simple_env.py:2096)
@@ -62,9 +63,11 @@ def init_agent(pos, yaw, device=None) -> AgentState:
     """A fresh agent at ``pos`` (3,) heading ``yaw``, or B agents at (B, 3)
     and (B,); ``device=None`` means the card."""
     dev = resolve_device(device)
-    yaw = torch.as_tensor(yaw, dtype=torch.float32, device=dev)
+    with span("motion.read_start"):
+        yaw = torch.as_tensor(yaw, dtype=torch.float32, device=dev)
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
     return AgentState(
-        pos=torch.as_tensor(pos, dtype=torch.float32, device=dev),
+        pos=pos,
         yaw=yaw,
         consecutive_collisions=torch.zeros(yaw.shape, dtype=torch.int32,
                                            device=dev),
@@ -119,7 +122,8 @@ def apply_cmd(state: AgentState, grid: OccupancyGrid, vx, vy, yaw_rate,
     dev = state.pos.device
 
     def f32(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+        with span("motion.read_scalar"):
+            return torch.as_tensor(v, dtype=torch.float32, device=dev)
 
     vx, vy = f32(vx), f32(vy)
     yaw_rate, duration_s = f32(yaw_rate), f32(duration_s)

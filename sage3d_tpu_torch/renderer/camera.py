@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .scene import resolve_device
 
 DEFAULT_HORIZONTAL_APERTURE_MM = 20.954999923706055
@@ -75,7 +76,8 @@ def look_rotation(forward, world_up=(0.0, 0.0, 1.0)) -> np.ndarray:
 
 
 def _scalar(x, dev) -> torch.Tensor:
-    return torch.tensor(np.float32(x), dtype=torch.float32, device=dev)
+    with span("camera.read_scalar"):
+        return torch.tensor(np.float32(x), dtype=torch.float32, device=dev)
 
 
 def make_camera(
@@ -148,7 +150,7 @@ def agent_camera_t(
     dev = agent_xy.device
     yaw = torch.as_tensor(yaw, dtype=torch.float32, device=dev)
     cy_, sy_ = torch.cos(yaw), torch.sin(yaw)
-    p = torch.tensor(np.float32(pitch), device=dev)
+    p = _scalar(pitch, dev)
     cp, sp = torch.cos(p), torch.sin(p)
     zero = torch.zeros_like(yaw)
     forward = torch.stack([cy_ * cp, sy_ * cp, (-sp).expand(yaw.shape)],

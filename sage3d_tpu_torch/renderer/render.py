@@ -36,6 +36,7 @@ from ..ops.composite_cuda import GID_LIMIT, composite_tiles_cuda
 from ..ops.composite_ref import composite_reference
 from ..ops.composite_torch import composite_tiles
 from ..ops.projection import project_gaussians
+from ..utils.profiling import span
 from .camera import Camera, slice_cameras, unstack_cameras
 from .scene import GaussianScene
 
@@ -225,58 +226,65 @@ def render(
         raise ValueError(f"render: the {backend} backend takes one camera; "
                          "render_batch renders a stacked batch")
     dev = scene.device
-    proj = project_gaussians(scene, camera, sh_degree=sh_degree,
-                             clamp_dims=clamp_dims)
+    with span("render", unit=True):
+        with span("render.project"):
+            proj = project_gaussians(scene, camera, sh_degree=sh_degree,
+                                     clamp_dims=clamp_dims)
 
-    if backend == "oracle":
-        out = composite_reference(proj, scene.semantic_ids, width, height)
-        overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    elif backend in ("torch", "cuda"):
-        # bins and the cuda compositor's outputs carry a leading camera axis
-        # (B = 1 for one camera), taken off once below
-        bins = bin_gaussians(proj, width, height, k_small=k_small,
-                             m_big=m_big, k_big=k_big, m_mid=m_mid,
-                             k_mid=k_mid)
-        if backend == "torch":
-            out = {k: v[None] for k, v in composite_tiles(
-                proj, scene.semantic_ids, bins, width, height,
-                tile_capacity=tile_capacity, chunk=chunk).items()}
+        if backend == "oracle":
+            with span("render.composite"):
+                out = composite_reference(proj, scene.semantic_ids, width,
+                                          height)
+            overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        elif backend in ("torch", "cuda"):
+            # bins and the cuda compositor's outputs carry a leading camera
+            # axis (B = 1 for one camera), taken off once below
+            with span("render.bin"):
+                bins = bin_gaussians(proj, width, height, k_small=k_small,
+                                     m_big=m_big, k_big=k_big, m_mid=m_mid,
+                                     k_mid=k_mid)
+            with span("render.composite"):
+                if backend == "torch":
+                    out = {k: v[None] for k, v in composite_tiles(
+                        proj, scene.semantic_ids, bins, width, height,
+                        tile_capacity=tile_capacity, chunk=chunk).items()}
+                else:
+                    if pair_capacity is None:
+                        pair_capacity = default_pair_capacity(
+                            scene.num_gaussians, width, height)
+                    out = composite_tiles_cuda(
+                        proj, scene.semantic_ids, bins, width, height,
+                        tile_capacity=tile_capacity,
+                        pair_capacity=pair_capacity,
+                        grad_sort_bf16=grad_sort_bf16, grad_sort=grad_sort,
+                        grad_capacity=grad_capacity)
+            overflow = (bins.overflow + out.pop("tile_overflow")).to(
+                torch.int32)
+            if single:
+                out = {k: v[0] for k, v in out.items()}
+                overflow = overflow[0]
         else:
-            if pair_capacity is None:
-                pair_capacity = default_pair_capacity(scene.num_gaussians,
-                                                      width, height)
-            out = composite_tiles_cuda(proj, scene.semantic_ids, bins, width,
-                                       height, tile_capacity=tile_capacity,
-                                       pair_capacity=pair_capacity,
-                                       grad_sort_bf16=grad_sort_bf16,
-                                       grad_sort=grad_sort,
-                                       grad_capacity=grad_capacity)
-        overflow = (bins.overflow + out.pop("tile_overflow")).to(torch.int32)
-        if single:
-            out = {k: v[0] for k, v in out.items()}
-            overflow = overflow[0]
-    else:
-        raise ValueError(f"unknown backend: {backend}")
+            raise ValueError(f"unknown backend: {backend}")
 
-    # the background per channel from Python numbers: a tensor of them
-    # would be a host-to-device copy, which waits for the card
-    rgb = torch.stack([out["rgb"][..., i] + out["trans"] * float(c)
-                       for i, c in enumerate(bg_color)], -1)
-    depth = out["depth_acc"] + out["trans"] * camera.far
-    grad_chunks = out.pop("grad_chunks", None)
-    return {
-        "rgb": rgb,
-        "depth": depth,
-        "alpha": out["alpha"],
-        "semantic": out["semantic"],
-        "trans": out["trans"],
-        "depth_acc": out["depth_acc"],
-        "rgb_acc": out["rgb"],
-        "overflow": overflow,
-        "grad_chunks": (grad_chunks if grad_chunks is not None
-                        else torch.zeros((), dtype=torch.int32, device=dev)),
-    }
-
+        # the background per channel from Python numbers: a tensor of them
+        # would be a host-to-device copy, which waits for the card
+        rgb = torch.stack([out["rgb"][..., i] + out["trans"] * float(c)
+                           for i, c in enumerate(bg_color)], -1)
+        depth = out["depth_acc"] + out["trans"] * camera.far
+        grad_chunks = out.pop("grad_chunks", None)
+        return {
+            "rgb": rgb,
+            "depth": depth,
+            "alpha": out["alpha"],
+            "semantic": out["semantic"],
+            "trans": out["trans"],
+            "depth_acc": out["depth_acc"],
+            "rgb_acc": out["rgb"],
+            "overflow": overflow,
+            "grad_chunks": (grad_chunks if grad_chunks is not None
+                            else torch.zeros((), dtype=torch.int32,
+                                             device=dev)),
+        }
 
 def render_batch(scene: GaussianScene, cameras: Camera,
                  sequential: bool = False, **kw) -> Dict[str, torch.Tensor]:

@@ -247,7 +247,7 @@ def test_mllm_server_roundtrip():
         assert srv.stats["requests"] == 1
 
 
-# -- stateful adapter, chaos, profiling (test_serve_extras) -------------------
+# -- stateful adapter and chaos (test_serve_extras) --------------------------
 
 def test_parse_motion_text_and_velocity_match_jax():
     from sage3d_tpu.serve import stateful_adapter as js
@@ -333,24 +333,6 @@ def test_chaos_fault_schedule_matches_jax():
     assert "PolicyFault" in got and ["stop"] in got
     assert issubclass(PolicyFault, RuntimeError)
     assert SlowPolicy(base, delay_s=0.0)() == {"stop": False}
-
-
-def test_render_cost_model_matches_jax():
-    from sage3d_tpu.utils.profiling import render_cost_model as jmodel
-    from sage3d_tpu_torch.utils.profiling import render_cost_model
-    m = render_cost_model(1_000_000, 1920, 1080, 6_000_000)
-    assert m == jmodel(1_000_000, 1920, 1080, 6_000_000)
-    assert m["compositing"]["flops"] > m["projection"]["flops"]
-
-
-def test_timed_and_trace_on_the_cpu(tmp_path):
-    from sage3d_tpu_torch.utils.profiling import timed, trace
-    x = torch.ones(64, 64)
-    t = timed(lambda a: a @ a, x, iters=3)
-    assert t["first_s"] > 0 and t["steady_s"] > 0
-    with trace(tmp_path / "tr") as d:
-        (x @ x).sum()
-    assert any((tmp_path / "tr").iterdir()) and d == str(tmp_path / "tr")
 
 
 def test_video_prompt_adapter_8frame_wire_roundtrip():
