@@ -8,9 +8,16 @@ Phases, in order (any failed check makes the script exit non-zero and print
 no result line):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile the seven CUDA sources of ``sage3d_tpu_torch/csrc``
-     (K1-K6 and the K2 anatomy probe) with nvcc, one process per source, all
+  2. build: compile the eight CUDA sources of ``sage3d_tpu_torch/csrc``
+     (K1-K7 and the K2 anatomy probe) with nvcc, one process per source, all
      at once;
+  2b. K7 (``csrc/project.cu``) against its plain twin on the 1M room at SH
+     3 (``k7_phase``): bitwise, one camera and a batch of 8, at 640x480 and
+     1920x1080, with and without ``clamp_dims``; its times beside the plain
+     chain's and the bytes bound. K7's ``launches`` in the ``kernels`` line
+     are those of phases 5, 9, 10, 11 and 14 (each counted from 0 around
+     its runs, as K1's are), which must each launch it; 2b's are not among
+     them;
   3. K1 (``csrc/emit.cu``) against its plain PyTorch version on the live
      slots of the 1080p frame of a 1M-Gaussian scene, fused key (mult > 0)
      and two-key (mult == 0) modes: the pairs, sorted by key, must be equal;
@@ -261,6 +268,14 @@ TRAINABLE = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
 # H100 SXM peaks (NVIDIA data sheet; dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
+# K7 reads a Gaussian's 236 bytes at SH 3 (means 12, log-scales 12,
+# quaternion 16, opacity logit 4, 48 SH floats 192) and writes 49 bytes a
+# (camera, Gaussian) row (means2d 8, conics 12, depths 4, radii 4, colours
+# 12, visible 1, extents 8).
+K7_BYTES_PER_GAUSSIAN = 236
+K7_BYTES_PER_ROW = 49
+K7_SIZES = ((640, 480), (1920, 1080))   # the nav cells' and the render cell's
+K7_BATCH = 8                            # their camera batch
 FP32_OPS_PER_S = 67e12
 # FP32 operations per unit of work, counted from the kernels' source:
 # K1, one live slot: the reciprocal walk with its fixup, the tile rect, four
@@ -899,11 +914,75 @@ def k6_phase(room, accel, xy, card: str, reset_peak) -> dict:
     return k6
 
 
+def k7_phase(card: str) -> dict:
+    """Phase 2b: K7 (``csrc/project.cu``) against its plain twin on the 1M
+    room at SH 3, at 640x480 and 1920x1080, for one camera and a batch of
+    ``K7_BATCH`` agent cameras, with and without ``clamp_dims``: every field
+    bitwise, each batched camera bitwise its single projection; then K7's
+    and the plain chain's times at both batch sizes, beside the bytes
+    bound. Returns the ``kernels`` line's K7 numbers (launches aside)."""
+    import torch
+    from sage3d_tpu_torch.ops import projection
+    from sage3d_tpu_torch.renderer.camera import agent_camera, stack_cameras
+    from sage3d_tpu_torch.renderer.scene import synthetic_room
+    room = synthetic_room(FRAME_A[0], seed=0, sh_degree=3, device="cuda")
+    n = room.num_gaussians
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    k7 = {}
+    for width, height in K7_SIZES:
+        cams = [agent_camera((0.4 * i - 1.4, -3.2 + 0.3 * i), 0.3 + 0.7 * i,
+                             width=width, height=height, device="cuda")
+                for i in range(K7_BATCH)]
+        batch = stack_cameras(cams)
+        same = True
+        for clamp in (None, (2 * width, 2 * height)):
+            got = projection.project_gaussians_cuda(room, batch, 3, clamp)
+            want = projection.project_gaussians_plain(room, batch, 3, clamp)
+            same &= all(torch.equal(bits(a), bits(b))
+                        for a, b in zip(got, want))
+            for b, cam in enumerate(cams[:2]):
+                one = projection.project_gaussians_cuda(room, cam, 3, clamp)
+                alone = projection.project_gaussians_plain(room, cam, 3, clamp)
+                same &= all(torch.equal(bits(a), bits(c[b]))
+                            and torch.equal(bits(a), bits(p))
+                            for a, c, p in zip(one, got, alone))
+        torch.cuda.synchronize()
+        check(same, f"2b K7 at {width}x{height}: every field bitwise its "
+              "plain twin, each batched camera bitwise its own projection")
+        for b_cams, cam in ((1, cams[0]), (K7_BATCH, batch)):
+            key = f"{width}x{height} B={b_cams}"
+            ms = cuda_ms(lambda: projection.project_gaussians_cuda(
+                room, cam, 3), reps=10, warmup=2)
+            b2b, host = back_to_back_ms(
+                lambda: projection.project_gaussians_cuda(room, cam, 3))
+            plain_b2b, plain_host = back_to_back_ms(
+                lambda: projection.project_gaussians_plain(room, cam, 3),
+                reps=5)
+            plain_ms = cuda_ms(lambda: projection.project_gaussians_plain(
+                room, cam, 3), reps=5, warmup=1)
+            bound = (n * K7_BYTES_PER_GAUSSIAN + b_cams * n * K7_BYTES_PER_ROW
+                     ) / HBM_BYTES_PER_S * 1e3
+            k7[key] = {"ms": ms, "back_to_back_ms": b2b, "host_ms": host,
+                       "plain_ms": plain_ms,
+                       "plain_back_to_back_ms": plain_b2b,
+                       "plain_host_ms": plain_host, "bound_ms": bound}
+            print(f"2b K7 {key} SH 3, 1M {card}: {ms:.4f} ms (events around "
+                  f"one call), {b2b:.4f} ms back to back, host {host:.4f} ms; "
+                  f"plain chain {plain_ms:.3f} ms, back to back "
+                  f"{plain_b2b:.3f}, host {plain_host:.3f}; bound "
+                  f"{bound:.4f} ms (bytes), share {bound / b2b:.3f}",
+                  flush=True)
+    return k7
+
+
 def navigation(room, card: str) -> list:
     """Phase 9, the navigation path on the 1M room (see the module
-    docstring). Returns K1's and K2's launches on its main-path runs, each
-    counted from 0 just before the run and read just after, and the phase's
-    peak device memory."""
+    docstring). Returns K1's, K2's, K6's and K7's launches on its main-path
+    runs, each counted from 0 just before the run and read just after, and
+    the phase's peak device memory."""
     import tempfile
     from pathlib import Path
 
@@ -916,7 +995,8 @@ def navigation(room, card: str) -> list:
     from sage3d_tpu_torch.env.rollout import (depth_seek_policy, rollout,
                                               rollout_batch)
     from sage3d_tpu_torch.env.vln_env import GaussianVLNEnv
-    from sage3d_tpu_torch.ops import binning, collision, composite_cuda
+    from sage3d_tpu_torch.ops import (binning, collision, composite_cuda,
+                                      projection)
     from sage3d_tpu_torch.ops.collision import (agent_capsule,
                                                 build_collision_accel,
                                                 capsule_query,
@@ -934,8 +1014,8 @@ def navigation(room, card: str) -> list:
 
     dev = room.device
     kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd,
-               collision.capsule_best)
-    launched = [0, 0, 0]
+               collision.capsule_best, projection.project_gaussians_cuda)
+    launched = [0, 0, 0, 0]
     peak = [torch.cuda.max_memory_allocated()]     # the phase's, over resets
 
     def reset_peak() -> int:
@@ -947,8 +1027,8 @@ def navigation(room, card: str) -> list:
         return torch.cuda.memory_allocated()
 
     def counted(fn):
-        """``fn()`` with K1's, K2's and K6's counters set to 0 just before
-        and read just after; the counts join the phase's launches."""
+        """``fn()`` with K1's, K2's, K6's and K7's counters set to 0 just
+        before and read just after; the counts join the phase's launches."""
         for k in kernels:
             k.launches = 0
         out = fn()
@@ -1043,7 +1123,8 @@ def navigation(room, card: str) -> list:
     print(f"9b rollout dense, {NAV_STEPS} steps at {NAV_W}x{NAV_H} on the "
           f"room "
           f"{card}: {NAV_STEPS / wall:.2f} env-steps/s ({step_ms:.3f} ms a "
-          f"step), launches K1 {n[0]} K2 {n[1]} K6 {n[2]}, total_overflow "
+          f"step), launches K1 {n[0]} K2 {n[1]} K6 {n[2]} K7 {n[3]}, "
+          f"total_overflow "
           f"{int(out['total_overflow'])}, moved {moved:.3f} m, goal distance "
           f"{float(out['goal_distance'][0]):.3f} -> "
           f"{float(out['goal_distance'][-1]):.3f} m, collisions "
@@ -1051,7 +1132,8 @@ def navigation(room, card: str) -> list:
           f"{float(out['min_clearance'].min()):.3f} m, peak device memory "
           f"{roll_peak / 2**30:.2f} GiB", flush=True)
     check(int(out["total_overflow"]) == 0, "9b: overflow 0 on every step")
-    check(n == [NAV_STEPS] * 3, "9b: K1, K2 and K6 launched once a step")
+    check(n == [NAV_STEPS] * 4,
+          "9b: K1, K2, K6 and K7 launched once a step")
     check(moved > 0.3, "9b: the agent moves more than 0.3 m")
     check(all(bool(torch.isfinite(out[k]).all()) for k in
               ("positions", "min_clearance", "goal_distance", "mean_depth")),
@@ -1068,14 +1150,14 @@ def navigation(room, card: str) -> list:
         if bool(below.any()) else 0.0
     print(f"9b rollout pruned {card}: {NAV_STEPS / wall_p:.2f} env-steps/s "
           f"({wall_p * 1e3 / NAV_STEPS:.3f} ms a step), launches K1 {n_p[0]} "
-          f"K2 {n_p[1]} K6 {n_p[2]}, positions "
+          f"K2 {n_p[1]} K6 {n_p[2]} K7 {n_p[3]}, positions "
           f"max |diff| {pos_err:.3e}, clearance below the margin max |diff| "
           f"{clear_err:.3e} ({int(below.sum())} steps)", flush=True)
     check(pos_err <= NAV_CLEAR_TOL and clear_err <= NAV_CLEAR_TOL
-          and int(out_p["total_overflow"]) == 0 and n_p == [NAV_STEPS] * 3,
+          and int(out_p["total_overflow"]) == 0 and n_p == [NAV_STEPS] * 4,
           "9b: pruned rollout's positions and clearance equal the dense "
-          f"one's within {NAV_CLEAR_TOL}, overflow 0, K1, K2 and K6 once a "
-          "step")
+          f"one's within {NAV_CLEAR_TOL}, overflow 0, K1, K2, K6 and K7 once "
+          "a step")
 
     # Where a step's time goes: the rollout's loop replayed with CUDA events
     # between its stages (its positions must be the rollout's).
@@ -1150,15 +1232,16 @@ def navigation(room, card: str) -> list:
             worst = max(worst, float((v.double() - other.double()
                                       ).abs().max()))
         print(f"9b rollout_batch {mode} B=4, {NAV_BATCH_STEPS} steps: "
-              f"launches K1 {n_b[0]} K2 {n_b[1]} K6 {n_b[2]}, total_overflow "
+              f"launches K1 {n_b[0]} K2 {n_b[1]} K6 {n_b[2]} K7 {n_b[3]}, "
+              f"total_overflow "
               f"per episode "
               f"{batch['total_overflow'].tolist()}, vs the single rollouts "
               f"max |diff| {worst:.3e}, bitwise {bitwise}", flush=True)
         per_step = 1 if mode == "vmap" else 4
-        check(n_b == [per_step * NAV_BATCH_STEPS] * 3
+        check(n_b == [per_step * NAV_BATCH_STEPS] * 4
               and int(batch["total_overflow"].sum()) == 0
               and worst <= NAV_CLEAR_TOL,
-              f"9b rollout_batch {mode}: K1, K2 and K6 once a "
+              f"9b rollout_batch {mode}: K1, K2, K6 and K7 once a "
               f"{'lockstep step' if mode == 'vmap' else 'step'}, overflow 0, "
               "equal to the single rollouts")
 
@@ -1323,9 +1406,9 @@ def data_path(room, room_200k, card: str) -> list:
     """Phase 10, the SAGE-Bench data path (see the module docstring): the
     planner, trajectory generation, actions, waypoint images and NaVILA on
     the 1M room, and the batch benchmark's hot swap between bundles of the
-    1M and the 200k room. Returns K1's and K2's launches on its main-path
-    runs (the images and the batch), each counted from 0 just before the
-    run and read just after."""
+    1M and the 200k room. Returns K1's, K2's and K7's launches on its
+    main-path runs (the images and the batch), each counted from 0 just
+    before the run and read just after."""
     import tempfile
     from io import BytesIO
     from pathlib import Path
@@ -1343,7 +1426,7 @@ def data_path(room, room_200k, card: str) -> list:
                                        transform_2d3d)
     from sage3d_tpu_torch.data.llm import MockLLMClient
     from sage3d_tpu_torch.env.vln_env import GaussianVLNEnv
-    from sage3d_tpu_torch.ops import binning, composite_cuda
+    from sage3d_tpu_torch.ops import binning, composite_cuda, projection
     from sage3d_tpu_torch.renderer.camera import (agent_camera,
                                                   stack_cameras,
                                                   unstack_cameras)
@@ -1354,8 +1437,9 @@ def data_path(room, room_200k, card: str) -> list:
     from sage3d_tpu_torch.serve.policy import OraclePolicy
 
     dev = room.device
-    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd)
-    launched = [0, 0]
+    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd,
+               projection.project_gaussians_cuda)
+    launched = [0, 0, 0]
 
     def counted(fn):
         for k in kernels:
@@ -1363,8 +1447,8 @@ def data_path(room, room_200k, card: str) -> list:
         out = fn()
         torch.cuda.synchronize()
         n = [k.launches for k in kernels]
-        launched[0] += n[0]
-        launched[1] += n[1]
+        for i, v in enumerate(n):
+            launched[i] += v
         return out, n
 
     tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
@@ -1573,8 +1657,8 @@ def data_path(room, room_200k, card: str) -> list:
     check(frames_done == n_frames >= DATA_BATCH,
           "10c: a frame for every waypoint")
     check(meta["total_overflow"] == 0, "10c: overflow 0 on every frame")
-    check(n_i == [n_batches, n_batches],
-          "10c: K1 and K2 once a batch of waypoint frames")
+    check(n_i == [n_batches] * 3,
+          "10c: K1, K2 and K7 once a batch of waypoint frames")
 
     # Where a frame's time goes: the first trajectory's batches replayed
     # with CUDA events around the render and the uint8 conversion with its
@@ -1792,8 +1876,9 @@ def serving(room, cam_a, budgets, card) -> list:
     """Phase 11, serving (see the module docstring): the CNN policy on the
     card against its CPU copy, ``run_benchmark`` against the policy server,
     the micro-batching server under concurrent clients, and the compressed
-    PLY path with the CLI. Returns K1's and K2's launches on its main-path
-    runs, each counted from 0 just before the run and read just after."""
+    PLY path with the CLI. Returns K1's, K2's and K7's launches on its
+    main-path runs, each counted from 0 just before the run and read just
+    after."""
     import collections
     import contextlib
     import io
@@ -1807,7 +1892,7 @@ def serving(room, cam_a, budgets, card) -> list:
     from sage3d_tpu_torch.bench.episodes import adapt_gvln_to_episodes
     from sage3d_tpu_torch.bench.runner import run_benchmark
     from sage3d_tpu_torch.env.vln_env import GaussianVLNEnv
-    from sage3d_tpu_torch.ops import binning, composite_cuda
+    from sage3d_tpu_torch.ops import binning, composite_cuda, projection
     from sage3d_tpu_torch.renderer.camera import agent_camera, stack_cameras
     from sage3d_tpu_torch.renderer.render import (autotune_all,
                                                   autotune_poses,
@@ -1824,13 +1909,14 @@ def serving(room, cam_a, budgets, card) -> list:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from splat_transform_port import write_compressed_ply_splat_transform
 
-    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd)
-    launched = [0, 0]
+    kernels = (binning.emit_tile_pairs, composite_cuda.composite_fwd,
+               projection.project_gaussians_cuda)
+    launched = [0, 0, 0]
 
     def counted(fn):
         out, n = launches_of(kernels, fn)
-        launched[0] += n[0]
-        launched[1] += n[1]
+        for i, v in enumerate(n):
+            launched[i] += v
         return out, n
 
     # 11a. the CNN on the card against its CPU copy --------------------------
@@ -2077,12 +2163,13 @@ def serving(room, cam_a, budgets, card) -> list:
                                                    pair_margin=1.05)))
     diff = float((out["rgb"] - orig["rgb"]).abs().mean())
     print(f"11d frame a of the loaded scene: overflow {int(out['overflow'])}, "
-          f"launches K1 {n_c[0]} K2 {n_c[1]}, mean |rgb - the uncompressed "
+          f"launches K1 {n_c[0]} K2 {n_c[1]} K7 {n_c[2]}, mean |rgb - the "
+          f"uncompressed "
           f"room's| {diff:.4e}", flush=True)
     check(n == room.num_gaussians and int(out["overflow"]) == 0
-          and n_c == [1, 1] and bool(torch.isfinite(out["rgb"]).all()),
+          and n_c == [1, 1, 1] and bool(torch.isfinite(out["rgb"]).all()),
           "11d: load_ply loads the compressed room; frame a renders with "
-          "overflow 0")
+          "overflow 0, K1, K2 and K7 launched once")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["validate-ply", str(ply)])
@@ -2924,15 +3011,15 @@ def batched_kernel_entry(name, source, replaces, fn, plain_fn, err,
             "library_ms": None, "singles_back_to_back_ms": singles}
 
 
-def batched_path(room, room_200k, waypoint, card) -> dict:
+def batched_path(room, room_200k, waypoint, card) -> tuple:
     """Phase 14, the camera-batched path (see the module docstring). Returns
     the batched entries of the ``kernels`` line, their launches counted over
-    the batched calls of 14b-14e."""
+    the batched calls of 14b-14e, and K7's launches over the same calls."""
     import numpy as np
     import torch
     from sage3d_tpu_torch.env.rollout import rollout, rollout_batch
     from sage3d_tpu_torch.ops import binning, collision, composite_cuda as cc
-    from sage3d_tpu_torch.ops import segreduce
+    from sage3d_tpu_torch.ops import projection, segreduce
     from sage3d_tpu_torch.parallel import train
     from sage3d_tpu_torch.parallel import trainer as tr
     from sage3d_tpu_torch.physics.occupancy import grid_from_mask
@@ -3048,7 +3135,8 @@ def batched_path(room, room_200k, waypoint, card) -> dict:
     del fa, bt, ones, k2_args, k3_args
 
     kernels = (binning.emit_tile_pairs, cc.composite_fwd, cc.composite_bwd,
-               segreduce.segment_reduce_sorted, collision.capsule_best)
+               segreduce.segment_reduce_sorted, collision.capsule_best,
+               projection.project_gaussians_cuda)
     for k in kernels:
         k.launches = 0
     total = [0] * len(kernels)
@@ -3275,8 +3363,9 @@ def batched_path(room, room_200k, waypoint, card) -> dict:
         e["launches"] = total[i]
     print(f"14 launches of the batched calls of 14b-14e (the sequential "
           f"renders and the map rollout apart): K1 {total[0]} K2 {total[1]} "
-          f"K3 {total[2]} K4 {total[3]} K6 {total[4]}", flush=True)
-    return entries
+          f"K3 {total[2]} K4 {total[3]} K6 {total[4]} K7 {total[5]}",
+          flush=True)
+    return entries, total[5]
 
 
 def main() -> int:
@@ -3290,7 +3379,8 @@ def main() -> int:
     import numpy as np
     from sage3d_tpu_torch.benchmarks import bench, kernel_anatomy
     from sage3d_tpu_torch.benchmarks._util import nvidia_smi_line
-    from sage3d_tpu_torch.ops import _build, binning, composite_cuda, segreduce
+    from sage3d_tpu_torch.ops import (_build, binning, composite_cuda,
+                                      projection, segreduce)
     from sage3d_tpu_torch.ops.composite_torch import composite_tiles
     from sage3d_tpu_torch.ops.projection import project_gaussians
     from sage3d_tpu_torch.parallel import train
@@ -3311,8 +3401,11 @@ def main() -> int:
     secs = _build.build_all()
     print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
-    check(len(secs) == 7 and all(_build._target(k).exists() for k in secs),
-          "build: the seven CUDA sources (K1-K6 and the K2 probe) built")
+    check(len(secs) == 8 and all(_build._target(k).exists() for k in secs),
+          "build: the eight CUDA sources (K1-K7 and the K2 probe) built")
+
+    # 2b. K7 against its plain twin, and its time ---------------------------
+    k7 = k7_phase(card)
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -3429,7 +3522,7 @@ def main() -> int:
     del d_tight, d_safe
 
     # 5. the main path ----------------------------------------------------------
-    launches = {"emit": 0, "composite_fwd": 0}
+    launches = {"emit": 0, "composite_fwd": 0, "project": 0}
     outs = {}
     for key, (scene, cam) in frames.items():
         bk = budget_kwargs(budgets[key])
@@ -3439,6 +3532,7 @@ def main() -> int:
             held = torch.cuda.memory_allocated()
         binning.emit_tile_pairs.launches = 0
         composite_cuda.composite_fwd.launches = 0
+        projection.project_gaussians_cuda.launches = 0
         with torch.no_grad():
             out = render(scene, cam, backend="cuda", **bk)
         torch.cuda.synchronize()
@@ -3449,17 +3543,19 @@ def main() -> int:
                   f"held before its render()", flush=True)
         n_emit = binning.emit_tile_pairs.launches
         n_comp = composite_cuda.composite_fwd.launches
+        n_proj = projection.project_gaussians_cuda.launches
         launches["emit"] += n_emit
         launches["composite_fwd"] += n_comp
+        launches["project"] += n_proj
         outs[key] = out
         finite = all(bool(torch.isfinite(out[k]).all())
                      for k in ("rgb", "depth", "alpha", "trans"))
         shape_ok = out["rgb"].shape == (cam.height, cam.width, 3)
         hit = float((out["semantic"] >= 0).float().mean())
         print(f"frame {key}: overflow {int(out['overflow'])}, grad_chunks "
-              f"{int(out['grad_chunks'])}, launches K1 {n_emit} K2 {n_comp}, "
-              f"mean rgb {float(out['rgb'].mean()):.4f}, covered {hit:.3f}",
-              flush=True)
+              f"{int(out['grad_chunks'])}, launches K1 {n_emit} K2 {n_comp} "
+              f"K7 {n_proj}, mean rgb {float(out['rgb'].mean()):.4f}, "
+              f"covered {hit:.3f}", flush=True)
         check(int(out["overflow"]) == 0, f"frame {key}: overflow == 0")
         check(finite and shape_ok, f"frame {key}: finite outputs of shape "
               f"({cam.height}, {cam.width})")
@@ -4058,7 +4154,7 @@ def main() -> int:
         frames["a_1080p_1M"][0], card)
     print(f"navigation phase {card}: {time.perf_counter() - t0:.1f} s, "
           f"launches K1 {launches_nav[0]} K2 {launches_nav[1]} K6 "
-          f"{launches_nav[2]}, peak device "
+          f"{launches_nav[2]} K7 {launches_nav[3]}, peak device "
           f"memory {nav_peak / 2**30:.2f} GiB", flush=True)
     peaks["9"] = phase_peak()
 
@@ -4068,8 +4164,8 @@ def main() -> int:
     launches_data, k5, waypoint = data_path(frames["a_1080p_1M"][0],
                                   frames["c_env_640x480_200k"][0], card)
     print(f"data phase {card}: {time.perf_counter() - t0:.1f} s, launches "
-          f"K1 {launches_data[0]} K2 {launches_data[1]} K5 "
-          f"{k5['launches']}", flush=True)
+          f"K1 {launches_data[0]} K2 {launches_data[1]} K7 "
+          f"{launches_data[2]} K5 {k5['launches']}", flush=True)
     peaks["10"] = phase_peak()
 
     # 11. serving ---------------------------------------------------------------------
@@ -4077,7 +4173,8 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_serve = serving(frames["a_1080p_1M"][0], cam_a, nav_budgets, card)
     print(f"serving phase {card}: {time.perf_counter() - t0:.1f} s, launches "
-          f"K1 {launches_serve[0]} K2 {launches_serve[1]}", flush=True)
+          f"K1 {launches_serve[0]} K2 {launches_serve[1]} K7 "
+          f"{launches_serve[2]}", flush=True)
     peaks["11"] = phase_peak()
 
     # 12. ADC training ----------------------------------------------------------------
@@ -4100,9 +4197,9 @@ def main() -> int:
     # 14. the camera-batched path -----------------------------------------------
     begin_phase_peak()
     t0 = time.perf_counter()
-    batched_entries = batched_path(frames["a_1080p_1M"][0],
-                                   frames["c_env_640x480_200k"][0], waypoint,
-                                   card)
+    batched_entries, launches_k7_batched = batched_path(
+        frames["a_1080p_1M"][0], frames["c_env_640x480_200k"][0], waypoint,
+        card)
     print(f"batched phase {card}: {time.perf_counter() - t0:.1f} s",
           flush=True)
     peaks["14"] = phase_peak()
@@ -4112,6 +4209,18 @@ def main() -> int:
           f"render; by phase, GiB: " + ", ".join(
               f"{k} {v / 2**30:.2f}" for k, v in peaks.items()), flush=True)
 
+    # K7's launches on the main paths that want no gradient, each counted
+    # from 0 just before its runs (phase 2b's own calls are not among them)
+    launches_k7 = {"5 frames": launches["project"],
+                   "9 navigation": launches_nav[3],
+                   "10 data": launches_data[2],
+                   "11 serving": launches_serve[2],
+                   "14 batched": launches_k7_batched}
+    print(f"K7 launches on the main paths: {json.dumps(launches_k7)}",
+          flush=True)
+    check(all(v > 0 for v in launches_k7.values()),
+          "K7 launched on every main path that wants no gradient (frames, "
+          "navigation, data, serving, batched)")
     kernels = [
         {"name": "K1 emit_tile_pairs", "route": "cuda",
          "source": "sage3d_tpu_torch/csrc/emit.cu",
@@ -4188,6 +4297,15 @@ def main() -> int:
          "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
          "b64_back_to_back_ms": k6["b64_back_to_back_ms"],
          "b64_bound_ms": k6["b64_bound_ms"], "library_ms": None},
+        {"name": "K7 project_gaussians", "route": "cuda",
+         "source": "sage3d_tpu_torch/csrc/project.cu",
+         "replaces": "none (the JAX package projects in plain XLA: "
+                     "sage3d_tpu/ops/projection.py:75)",
+         "launches": sum(launches_k7.values()),
+         "max_abs_err": 0.0,
+         **{k: v for k, v in k7[f"640x480 B={K7_BATCH}"].items()},
+         "bound_by": "bytes", "library_ms": None,
+         "by_shape": k7},
         *batched_entries,
     ]
     check(all(k["launches"] > 0 for k in kernels),

@@ -89,6 +89,15 @@ KERNELS = {
         # logits, out, n, stream
         "sage3d_capsule_sigmoid": [_P, _P, _I, _P],
     }),
+    "project": ("project.cu", {
+        # means, log_scales, quats, logits, sh, n, sh_row, sh_vec, degree,
+        # position, cam_to_world, fx, fy, cx, cy, b, half_w, half_h, width,
+        # height, near, far, means2d, conics, depths, radii, colors,
+        # opacities, visible, extents, stream
+        "sage3d_project": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P],
+    }),
 }
 
 _LIBS: dict = {}

@@ -1,9 +1,16 @@
-"""3D -> 2D Gaussian projection (EWA splatting), plain tensor code, autograd.
+"""3D -> 2D Gaussian projection (EWA splatting) and SH colour.
 
 PyTorch counterpart of ``sage3d_tpu/ops/projection.py``. The channel math and
 its operation order are kept as written there: ``radii``, ``extents`` and
 ``visible`` come from ``ceil`` and comparisons of f32 expressions, and binning
 reads all three, so they must land on the same integers as the JAX package.
+
+``project_gaussians`` launches K7 (``csrc/project.cu``, wrapper
+``project_gaussians_cuda``) where the scene lies on the card and no gradient
+is wanted, and runs the plain tensor code (``project_gaussians_plain``, which
+autograd differentiates) otherwise: on the CPU and under autograd. K7 is the
+plain version's arithmetic in one launch, its fields bitwise the plain
+version's on the card.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ import torch
 
 from ..renderer.camera import Camera
 from ..renderer.scene import GaussianScene
+from ..utils.profiling import count as add_count
+from . import _build
 from .sh import eval_sh
 
 COV2D_DILATION = 0.3
@@ -58,22 +67,52 @@ def covariance_3d(log_scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor
     return M @ M.transpose(-1, -2)
 
 
+def _takes_kernel(scene: GaussianScene, camera: Camera) -> bool:
+    """K7's rule: the scene lies on the card and no gradient is wanted
+    (grad mode is off, or no scene or camera tensor the projection reads
+    requires one)."""
+    return scene.means.device.type == "cuda" and not (
+        torch.is_grad_enabled()
+        and any(t.requires_grad for t in (*scene[:5], *camera[:6])))
+
+
 def project_gaussians(scene: GaussianScene, camera: Camera,
                       sh_degree: Optional[int] = None,
                       clamp_dims: Optional[tuple] = None) -> ProjectedGaussians:
     """Project all Gaussians into one camera, or into each camera of a
     stacked batch (``stack_cameras``): then every field carries a leading
     camera axis, (B, N, ...), and camera b's slice is bitwise what camera b
-    alone gives (the channel math is elementwise, the camera's scalars
-    broadcast over the Gaussians). The batch is one set of launches with
-    view-dependent SH per camera; autograd sums the scene's gradients over
-    the cameras.
+    alone gives. View-dependent SH per camera; autograd sums the scene's
+    gradients over the cameras.
 
     ``clamp_dims`` (width, height) overrides the frustum-cone clamp used in the
     EWA Jacobian (band-sharded renders pass the full frame dims).
+
+    A scene on the card with no gradient wanted takes K7
+    (``project_gaussians_cuda``), one launch; otherwise the plain version
+    runs. Counts ``projection.rows`` (cameras x Gaussians) and
+    ``projection.kernel_rows`` (the rows K7 took) on the recorder.
     """
     if sh_degree is None:
         sh_degree = scene.sh_degree
+    kernel = _takes_kernel(scene, camera)
+    rows = scene.num_gaussians * (camera.position.shape[0]
+                                  if camera.position.dim() == 2 else 1)
+    add_count("projection.rows", rows)
+    add_count("projection.kernel_rows", rows if kernel else 0)
+    if kernel:
+        return project_gaussians_cuda(scene, camera, sh_degree, clamp_dims)
+    return project_gaussians_plain(scene, camera, sh_degree, clamp_dims)
+
+
+def project_gaussians_plain(scene: GaussianScene, camera: Camera,
+                            sh_degree: int,
+                            clamp_dims: Optional[tuple] = None
+                            ) -> ProjectedGaussians:
+    """``project_gaussians`` as plain tensor code, differentiable: K7's
+    twin, the CPU path and the path under autograd. The channel math is
+    elementwise and the camera's scalars broadcast over the Gaussians, so a
+    batch is one set of launches."""
     clamp_w, clamp_h = clamp_dims if clamp_dims is not None else (
         camera.width, camera.height)
     batched = camera.position.dim() == 2
@@ -161,6 +200,77 @@ def project_gaussians(scene: GaussianScene, camera: Camera,
         visible=visible,
         extents=extents,
     )
+
+
+# cameras one K7 launch takes: 16 a block, 65535 blocks along grid.y
+K7_MAX_CAMERAS = 16 * 65535
+
+
+def project_gaussians_cuda(scene: GaussianScene, camera: Camera,
+                           sh_degree: int,
+                           clamp_dims: Optional[tuple] = None
+                           ) -> ProjectedGaussians:
+    """K7 (``csrc/project.cu``): ``project_gaussians_plain``'s fields in one
+    launch, for one camera or a stacked batch, with no autograd. The scene's
+    and the camera's tensors are float32, contiguous and on one CUDA
+    device; ``sh_degree`` is 0-3 and at most the scene's. The opacities,
+    and the colours at degree 0, are one (N,) / (N, 3) tensor expanded over
+    the cameras, as the plain version's are."""
+    n = scene.means.shape[0]
+    batched = camera.position.dim() == 2
+    b = camera.position.shape[0] if batched else 1
+    cam = (b,) if batched else ()
+    k = scene.sh.shape[1] if scene.sh.dim() == 3 else -1
+    want = [(scene.means, (n, 3)), (scene.log_scales, (n, 3)),
+            (scene.quats, (n, 4)), (scene.opacity_logits, (n,)),
+            (scene.sh, (n, k, 3)), (camera.position, cam + (3,)),
+            (camera.cam_to_world, cam + (3, 3)),
+            *((t, cam) for t in camera[2:6])]
+    for t, shape in want:
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"project_gaussians_cuda: expected a contiguous "
+                             f"{shape} float32 tensor, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if not 0 <= sh_degree <= 3 or (sh_degree + 1) ** 2 > k:
+        raise ValueError(f"project_gaussians_cuda: SH degree {sh_degree} "
+                         f"needs {(sh_degree + 1) ** 2} of the scene's {k} "
+                         "coefficients, at most degree 3")
+    if n >= 2**31 or b > K7_MAX_CAMERAS:
+        raise ValueError("project_gaussians_cuda: at most 2^31 - 1 Gaussians "
+                         f"and {K7_MAX_CAMERAS} cameras a launch")
+    dev = scene.means.device
+    if dev.type != "cuda" or any(t.device != dev for t, _ in want):
+        raise ValueError("project_gaussians_cuda: the scene and the camera "
+                         "must lie on one CUDA device")
+    clamp_w, clamp_h = clamp_dims if clamp_dims is not None else (
+        camera.width, camera.height)
+    lead = (b, n) if batched else (n,)
+
+    def out(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    proj = ProjectedGaussians(
+        means2d=out(lead + (2,)), conics=out(lead + (3,)), depths=out(lead),
+        radii=out(lead, torch.int32),
+        colors=out(lead + (3,) if sh_degree else (n, 3)),
+        opacities=out((n,)), visible=out(lead, torch.bool),
+        extents=out(lead + (2,)))
+    sh_vec = int(scene.sh.data_ptr() % 16 == 0 and 3 * k % 4 == 0)
+    err = _build.launch(
+        _build.load("project").sage3d_project, dev,
+        *(t.data_ptr() for t in scene[:5]), n, 3 * k, sh_vec, sh_degree,
+        *(t.data_ptr() for t in camera[:6]), b, 0.5 * clamp_w,
+        0.5 * clamp_h, float(camera.width), float(camera.height),
+        float(camera.near), float(camera.far),
+        *(t.data_ptr() for t in proj))
+    _build.check(err, "project_gaussians_cuda")
+    project_gaussians_cuda.launches += 1
+    return proj._replace(colors=proj.colors.expand(lead + (3,)),
+                         opacities=proj.opacities.expand(lead))
+
+
+project_gaussians_cuda.launches = 0
 
 
 def alpha_at(proj: ProjectedGaussians, px: torch.Tensor,

@@ -788,3 +788,130 @@ def test_lockstep_rollout_on_the_card_is_each_rollout_bitwise():
         one = rollout(scene, grid, starts[b], yaws[b], goals[b], **kw)
         for k in one:
             assert torch.equal(got[k][b], one[k]), (b, k)
+
+
+# -- K7, the projection --------------------------------------------------------
+
+K7_EYE, K7_FORWARD = (0.0, -4.0, 1.2), (0.0, 1.0, -0.1)
+
+
+def _k7_scene(deg: int, n: int = 20_000):
+    """A room at SH ``deg`` with view-dependent colour, and Gaussians planted
+    for camera 0 (``K7_EYE`` looking along ``K7_FORWARD``): 100 behind it,
+    100 beyond its far plane, 100 on its image plane (|tz| < 1e-6, the
+    safe-depth branch), 100 below ALPHA_MIN and 100 at its logit."""
+    from sage3d_tpu_torch.ops.projection import ALPHA_MIN
+    scene = synthetic_room(n, seed=11, sh_degree=deg, device="cuda")
+    g = torch.Generator().manual_seed(deg)
+    sh = scene.sh + 0.3 * torch.randn(scene.sh.shape, generator=g).cuda()
+    eye = torch.tensor(K7_EYE)
+    fwd = torch.tensor(K7_FORWARD)
+    fwd = fwd / fwd.norm()
+    right = torch.linalg.cross(fwd, torch.tensor([0.0, 0.0, 1.0]))
+    right = right / right.norm()
+    s = torch.linspace(-3.0, 3.0, 100)[:, None]
+    means = scene.means.clone()
+    means[0:100] = (eye - 2.0 * fwd + 0.5 * s * right).cuda()
+    means[100:200] = (eye + 60.0 * fwd + s * right).cuda()
+    means[200:300] = (eye + s * right).cuda()
+    logits = scene.opacity_logits.clone()
+    logits[300:400] = -7.0
+    a = np.float32(ALPHA_MIN)
+    logits[400:500] = float(np.log(a / (np.float32(1) - a)))
+    return scene._replace(means=means, sh=sh.contiguous(),
+                          opacity_logits=logits)
+
+
+def _k7_cameras(width, height):
+    from sage3d_tpu_torch.renderer.camera import stack_cameras
+    poses = [(K7_EYE, K7_FORWARD)] + [
+        ((3.0 * np.cos(t), 3.0 * np.sin(t), 1.0 + 0.1 * i),
+         (-np.cos(t), -np.sin(t), -0.2 + 0.05 * i))
+        for i, t in enumerate(np.linspace(0.3, 5.9, 7))]
+    cams = [make_camera(p, f, width, height, device="cuda") for p, f in poses]
+    return cams, stack_cameras(cams)
+
+
+def _bitwise(got, want, what):
+    """Every field of two ``ProjectedGaussians`` equal bit for bit."""
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.shape == b.shape and a.dtype == b.dtype, (what, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        n_diff = int((a != b).sum())
+        assert n_diff == 0, f"{what}: {f} differs in {n_diff} entries"
+
+
+@pytest.mark.parametrize("width,height", [(640, 480), (1920, 1080)])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_projection_kernel_is_bitwise_its_plain_twin(deg, width, height):
+    """K7 against ``project_gaussians_plain`` on the card, one camera and a
+    batch of 8, with and without ``clamp_dims``, at SH ``deg`` of a degree-3
+    scene (16-byte SH loads) and of a scene of degree ``deg`` (K = 1 and 9:
+    scalar loads): every field bitwise, each batched camera bitwise its
+    single projection."""
+    from sage3d_tpu_torch.ops import projection
+    _need_card("K7")
+    cams, stacked = _k7_cameras(width, height)
+    for scene in {3: _k7_scene(3), deg: _k7_scene(deg)}.values():
+        assert bool((projection.project_gaussians_plain(
+            scene, cams[0], deg).depths[:100] < 0).all())
+        for clamp in (None, (2 * width, 2 * height)):
+            what = f"SH {deg} of {scene.sh.shape[1]}, clamp {clamp}"
+            before = projection.project_gaussians_cuda.launches
+            got = projection.project_gaussians_cuda(scene, stacked, deg, clamp)
+            torch.cuda.synchronize()
+            assert projection.project_gaussians_cuda.launches == before + 1
+            _bitwise(got, projection.project_gaussians_plain(
+                scene, stacked, deg, clamp), f"B=8, {what}")
+            for b, cam in enumerate(cams):
+                one = projection.project_gaussians_cuda(scene, cam, deg, clamp)
+                _bitwise(one, projection.project_gaussians_plain(
+                    scene, cam, deg, clamp), f"camera {b}, {what}")
+                _bitwise(one, type(got)(*(t[b] for t in got)),
+                         f"camera {b} in the batch, {what}")
+            vis = got.visible[0]
+            assert 0 < int(vis.sum()) < vis.numel()
+            assert not bool(vis[:400].any())
+
+
+def test_project_gaussians_takes_k7_only_without_a_gradient():
+    """On the card ``project_gaussians`` launches K7 under ``no_grad`` and
+    for a scene that requires no gradient, and runs the plain version, with
+    its gradient, for one that does."""
+    from sage3d_tpu_torch.ops import projection
+    _need_card("K7")
+    scene = _k7_scene(3, n=4000)
+    cams, stacked = _k7_cameras(640, 480)
+    before = projection.project_gaussians_cuda.launches
+    plain = projection.project_gaussians_plain(scene, stacked, 3)
+    _bitwise(projection.project_gaussians(scene, stacked), plain, "no grad")
+    leaves = scene._replace(**{f: getattr(scene, f).clone().requires_grad_()
+                               for f in PARAMS})
+    with torch.no_grad():
+        _bitwise(projection.project_gaussians(leaves, stacked), plain,
+                 "no_grad")
+    assert projection.project_gaussians_cuda.launches == before + 2
+    got = projection.project_gaussians(leaves, stacked)
+    assert projection.project_gaussians_cuda.launches == before + 2
+    got.colors.sum().backward()
+    assert leaves.sh.grad is not None and bool(leaves.sh.grad.abs().sum() > 0)
+
+
+def test_projection_kernel_refuses_what_it_does_not_take():
+    from sage3d_tpu_torch.ops import projection
+    _need_card("K7")
+    scene = _k7_scene(1, n=1000)
+    cams, _ = _k7_cameras(64, 48)
+    with pytest.raises(ValueError, match="SH degree"):
+        projection.project_gaussians_cuda(scene, cams[0], 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        projection.project_gaussians_cuda(
+            scene._replace(means=scene.means.t().contiguous().t()), cams[0], 1)
+    with pytest.raises(ValueError, match="float32"):
+        projection.project_gaussians_cuda(
+            scene._replace(quats=scene.quats.double()), cams[0], 1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        projection.project_gaussians_cuda(
+            scene, cams[0]._replace(position=cams[0].position.cpu()), 1)

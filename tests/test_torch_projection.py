@@ -108,3 +108,103 @@ def test_oracle_compositor_matches():
                                rtol=1e-3, atol=1e-3)
     assert (_np(got["semantic"]) == np.asarray(want["semantic"])).mean() > 0.995
     assert got["semantic"].dtype == torch.int32
+
+
+# -- K7's dispatch, counters and wrapper (the kernel itself runs on the card:
+# tests/test_torch_gpu.py) ---------------------------------------------------
+
+def _fields_equal(got, want):
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        assert torch.equal(a, b), f
+
+
+def _batch(width=W, height=H):
+    from sage3d_tpu_torch.renderer.camera import make_camera as tmake
+    from sage3d_tpu_torch.renderer.camera import stack_cameras
+    return stack_cameras([tmake(p, [0.0, 1.0, -0.1], width, height,
+                                device="cpu")
+                          for p in ([0.0, -4.0, 1.2], [0.5, -3.5, 1.0],
+                                    [-0.5, -3.0, 1.4])])
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_project_gaussians_takes_the_plain_version_on_the_cpu(grad):
+    """On the CPU ``project_gaussians`` is the plain version, with or without
+    a gradient wanted; the gradient flows through it."""
+    scene = synthetic_room(num_gaussians=400, seed=5, sh_degree=3)
+    ts, tc = _port(scene, _cam())
+    if grad:
+        ts = ts._replace(**{f: getattr(ts, f).clone().requires_grad_()
+                            for f in ("means", "log_scales", "quats",
+                                      "opacity_logits", "sh")})
+    assert not tproj._takes_kernel(ts, tc)
+    before = tproj.project_gaussians_cuda.launches
+    got = tproj.project_gaussians(ts, tc)
+    _fields_equal(got, tproj.project_gaussians_plain(ts, tc, 3))
+    assert tproj.project_gaussians_cuda.launches == before
+    assert got.colors.requires_grad == grad
+    if grad:
+        got.colors.sum().backward()
+        assert float(ts.sh.grad.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+def test_projection_counts_rows_and_kernel_rows(kernel, monkeypatch):
+    """``projection.rows`` counts cameras x Gaussians of every call,
+    ``projection.kernel_rows`` those of the calls K7 takes (here a stand-in
+    for K7 that records its arguments)."""
+    from sage3d_tpu_torch.utils import profiling as prof
+    ts, tc = _port(synthetic_room(num_gaussians=400, seed=5), _cam())
+    calls = []
+    if kernel:
+        monkeypatch.setattr(tproj, "_takes_kernel", lambda s, c: True)
+        monkeypatch.setattr(tproj, "project_gaussians_cuda",
+                            lambda *a: calls.append(a)
+                            or tproj.project_gaussians_plain(*a))
+    prof.reset()
+    prof.enable()
+    try:
+        with prof.span("render.project"):
+            tproj.project_gaussians(ts, tc)
+            tproj.project_gaussians(ts, _batch(), sh_degree=0,
+                                    clamp_dims=(128, 96))
+    finally:
+        prof.disable()
+    counted = prof.counters()
+    prof.reset()
+    assert counted["projection.rows"] == 4 * 400
+    assert counted["projection.kernel_rows"] == (4 * 400 if kernel else 0)
+    assert [(a[2], a[3]) for a in calls] == (
+        [(0, None), (0, (128, 96))] if kernel else [])
+
+
+def _refused(case):
+    """A CPU scene and camera that K7's wrapper refuses for ``case``."""
+    ts, tc = _port(synthetic_room(num_gaussians=400, seed=5, sh_degree=1),
+                   _cam())
+    deg = 1
+    if case == "dtype":
+        ts = ts._replace(quats=ts.quats.double())
+    elif case == "shape":
+        ts = ts._replace(sh=ts.sh[:, :, :2].contiguous())
+    elif case == "contiguity":
+        ts = ts._replace(means=ts.means.t().contiguous().t())
+    elif case == "camera shape":
+        tc = tc._replace(fx=tc.fx.reshape(1))
+    elif case == "degree":
+        deg = 2
+    return ts, tc, deg
+
+
+@pytest.mark.parametrize("case,message", [
+    ("dtype", "float32"), ("shape", "expected"), ("contiguity", "contiguous"),
+    ("camera shape", "expected"), ("degree", "SH degree"),
+    ("cpu", "one CUDA device")])
+def test_projection_kernel_wrapper_refuses(case, message):
+    ts, tc, deg = _refused(case)
+    before = tproj.project_gaussians_cuda.launches
+    with pytest.raises(ValueError, match=message):
+        tproj.project_gaussians_cuda(ts, tc, deg)
+    assert tproj.project_gaussians_cuda.launches == before
