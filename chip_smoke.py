@@ -232,8 +232,14 @@ no result line):
      group's max, K1-K4 once a batched step; step ms, device busy, K3's
      device time and peak memory of both, and the peak of the 1080p/1M
      step at one camera.
+ 15. Gaussian ids past 2^24 (``ids_past_2_24``): ``tests/test_torch_gpu.py``'s
+     test of one render and backward of 2^24 + 2^20 rows, a 20k room laid
+     at the rows around 2^24 among parked ones, at 160x128: the ``cuda``
+     backend's gradients within 5e-4 of each group's largest of the plain
+     ``torch`` compositor's, Gaussians past 2^24 among those seen, the
+     parked rows' gradients zero.
 
-Each phase's peak device memory is printed after phase 14.
+Each phase's peak device memory is printed after phase 15.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -3368,6 +3374,19 @@ def batched_path(room, room_200k, waypoint, card) -> tuple:
     return entries, total[5]
 
 
+def ids_past_2_24(card: str) -> None:
+    """Phase 15 (see the module docstring): the card test, its assertions
+    as this script's checks."""
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_gpu
+    try:
+        test_torch_gpu.test_gaussian_ids_past_2_24_route_on_the_card()
+        check(True, f"ids past 2^24 route to their Gaussians {card}")
+    except AssertionError as e:
+        check(False, f"ids past 2^24 route to their Gaussians {card}: {e!r}")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -4203,6 +4222,13 @@ def main() -> int:
     print(f"batched phase {card}: {time.perf_counter() - t0:.1f} s",
           flush=True)
     peaks["14"] = phase_peak()
+
+    # 15. Gaussian ids past 2^24 -------------------------------------------------
+    begin_phase_peak()
+    t0 = time.perf_counter()
+    ids_past_2_24(card)
+    print(f"ids phase {card}: {time.perf_counter() - t0:.1f} s", flush=True)
+    peaks["15"] = phase_peak()
     print(f"peak device memory {card}: "
           f"{max(peaks.values()) / 2**30:.2f} GiB for the script's process "
           f"(phase 13's ranks apart), {peak_b / 2**30:.2f} GiB at frame b's "

@@ -28,7 +28,9 @@ Beyond the JAX CLI's flags, every command that touches tensors takes
 replaces ``serve-jax``, and ``run-benchmark`` and ``gen-images`` print the
 frames' ``total_overflow`` so that dropped pairs are never silent.
 ``train-scene --mesh RxC`` of more than one rank starts one process per
-rank on ``--device`` (``parallel/mesh.py``'s ``spawn_mesh``). ``run-benchmark
+rank on ``--device`` (``parallel/mesh.py``'s ``spawn_mesh``); ``--gather
+splats`` picks the sharded step's splat layout (each rank projects its own
+shard), ``params`` (the default) the JAX package's. ``run-benchmark
 --budgets`` takes the env's binning budgets from a JSON file (an
 ``autotune_poses`` dict): without it the frames use ``render``'s defaults,
 as in the JAX CLI, and those drop pairs at 640x480 even in a 20k-Gaussian
@@ -467,6 +469,12 @@ def main(argv=None) -> int:
     p.add_argument("--size", type=int, default=128)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--mesh", default="1x1", help="data x tile, e.g. 2x4")
+    p.add_argument("--gather", default="params", choices=("params", "splats"),
+                   help="the sharded step's layout on a mesh: 'params' "
+                   "all-gathers the raw parameters and renders every row on "
+                   "every rank (the JAX package's); 'splats' projects each "
+                   "rank's shard and all-gathers the projected splats, for "
+                   "scenes too large to gather whole")
     p.add_argument("--adaptive", action="store_true",
                    help="classic 3DGS density control (split/clone/prune)")
     p.add_argument("--capacity", type=int, default=0,
@@ -486,7 +494,7 @@ def main(argv=None) -> int:
                                            backend=backend)
         mesh_shape = tuple(int(x) for x in a.mesh.split("x"))
         cfg = TrainerConfig(lr=a.lr, steps=a.steps,
-                            mesh_shape=mesh_shape,
+                            mesh_shape=mesh_shape, gather=a.gather,
                             checkpoint_dir=a.checkpoint_dir, backend=backend)
         if a.adaptive:
             fitted, history = fit_scene_adaptive(

@@ -14,10 +14,13 @@
 // 1024 pixels: the conic a/b/c and mean x/y gradients from dpower =
 // dalpha * alpha, the opacity gradient sum(dpower) / op, and g_ch * w for
 // r, g, b and depth. Row (chunk0[t] + k) * 128 + i of the slot buffer gets
-// those ten values and, in column 11, the pair's Gaussian id. The caller
-// fills the buffer with zero payload and the out-of-range id n_gauss, which
-// rows of lanes past a chunk's last pair and of slots past the tile's allowed
-// chunks keep: the sort puts them last and the segment sum skips them.
+// those ten values and the pair's Gaussian id (its table row, read from
+// pair_gauss), exact in two floats: id mod 2^24 in column 11 and id >> 24
+// in column 10 (0 below 2^24 rows, as the JAX package's single float id).
+// The caller fills the buffer with zero payload and the out-of-range id
+// n_gauss, which rows of lanes past a chunk's last pair and of slots past the
+// tile's allowed chunks keep: the sort puts them last and the segment sum
+// skips them.
 // A batch of cameras is one launch over B * cam_tiles camera-major tiles and
 // an attribute table of B * N rows, as in K2: the tile's pixel origin comes
 // from its index within its camera, and chunk0 places each camera's slots
@@ -76,9 +79,12 @@ constexpr int kChunk = 128;  // pairs per chunk
 constexpr int kNfeat = 16;   // floats per attribute / slot row
 constexpr int kNch = 8;      // channels of the forward images
 constexpr int kNgrad = 10;   // gradient channels per pair
-constexpr int kGidCol = 11;  // slot column carrying the Gaussian id
-static_assert(kGidCol == 2 * 4 + 3, "the id is the last float of the row's "
-              "third float4 (flush)");
+constexpr int kGidCol = 11;  // slot column: the Gaussian id mod 2^24
+constexpr int kGidHiCol = 10;  // slot column: the Gaussian id >> 24
+constexpr int kGidLoBits = 24;
+static_assert(kGidCol == 2 * 4 + 3 && kGidHiCol == 2 * 4 + 2,
+              "the id is the last two floats of the row's third float4 "
+              "(flush)");
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTransEps = 1e-4f;
@@ -86,14 +92,15 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;  // devices whose launch attributes are set
 
 struct __align__(16) Coef {
-  float w0, wx, wy, ha, hc, b, op, r, g, bl, depth, mx, my, a, c, gid;
+  float w0, wx, wy, ha, hc, b, op, r, g, bl, depth, mx, my, a, c;
+  int gid;  // the pair's Gaussian id (its table row)
 };
 
 constexpr size_t kSmemBytes =
     2 * kChunk * sizeof(Coef) + 2 * kWarps * kChunk * kNgrad * sizeof(float);
 
-// One pair's coefficients from its attribute row (columns 0-11), in K2's
-// operations and order.
+// One pair's coefficients from its attribute row (columns 0-10), in K2's
+// operations and order, and its Gaussian id (load_row's q[2].w).
 __device__ __forceinline__ Coef make_coef(const float4 (&q)[3], float ox,
                                           float oy) {
   const float a = q[0].x, b = q[0].y, c = q[0].z;
@@ -115,16 +122,20 @@ __device__ __forceinline__ Coef make_coef(const float4 (&q)[3], float ox,
   e.my = cy;
   e.a = a;
   e.c = c;
-  e.gid = q[2].w;
+  e.gid = __float_as_int(q[2].w);
   return e;
 }
 
+// The attribute row of Gaussian ``gid`` (three float4, columns 0-11), with
+// the id's bits in place of column 11: the id routes from the pair list,
+// exact at any table size, and takes no register of its own.
 __device__ __forceinline__ void load_row(const float* __restrict__ attrs,
                                          int gid, float4 (&q)[3]) {
   const float4* row = reinterpret_cast<const float4*>(attrs + (size_t)gid * kNfeat);
   q[0] = row[0];
   q[1] = row[1];
   q[2] = row[2];
+  q[2].w = __int_as_float(gid);
 }
 
 // 1 / x for x in [0.01, 1] (x = 1 - alpha): the hardware's approximate
@@ -256,7 +267,8 @@ composite_bwd_kernel(const float* __restrict__ attrs,
                        e.a * s[3] + e.b * s[4]);
     o[1] = make_float4(e.c * s[4] + e.b * s[3],
                        s[5] / (e.op > 0.0f ? e.op : 1.0f), s[6], s[7]);
-    o[2] = make_float4(s[8], s[9], 0.0f, e.gid);
+    o[2] = make_float4(s[8], s[9], (float)(e.gid >> kGidLoBits),
+                       (float)(e.gid & ((1 << kGidLoBits) - 1)));
     o[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   };
 

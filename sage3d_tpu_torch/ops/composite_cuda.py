@@ -5,14 +5,19 @@ Replaces the JAX module ``sage3d_tpu/ops/composite_pallas.py`` (the
 ``"pallas"`` backend); this is the ``"cuda"`` backend of ``render``.
 ``composite_tiles_cuda`` takes the arguments of ``composite_tiles_pallas`` and
 returns the same dict. The per-Gaussian (N, 16) attribute table keeps the
-JAX layout, Gaussian id in ``GID_COL``.
+JAX layout, Gaussian id in ``GID_COL``; past 2^24 rows, where a float32 no
+longer holds every id, the id's low 24 bits stay in ``GID_COL`` and its high
+bits go to ``GID_HI_COL``, one of the JAX layout's zero pads, so tables
+below 2^24 rows are bitwise the JAX package's (``gid_split``).
 
 The autograd boundary is the JAX ``custom_vjp``'s, ``attrs -> (out, k_end)``
 (``_AttrComposite``). Its backward runs K3 (``csrc/composite_bwd.cu``) into a
 buffer of per-pair gradient rows, one 128-row slot per chunk the forward
 processed (packed by the forward's per-tile ``k_end``, at most
-``grad_capacity`` slots), each row carrying its Gaussian id; a stable sort
-groups the rows by id and K4 (``ops/segreduce.py``) sums them per Gaussian.
+``grad_capacity`` slots), each row carrying its Gaussian id (low bits in
+``GID_COL``, high bits in ``SLOT_HI_COL``); a stable sort of the int32 id
+(``slot_ids``) groups the rows by id and K4 (``ops/segreduce.py``) sums
+them per Gaussian.
 Rows no pair fills carry the out-of-range id N: they sort last and add
 nothing.
 The sort's payload is exact f32 by default (``GRAD_SORT_DEFAULT``); ``"f16"``
@@ -51,9 +56,13 @@ NPIX = TILE_W * TILE_H  # 1024 pixels per tile
 NFEAT = 16              # attribute-table columns
 NCH = 8                 # out channels: r,g,b,depth,alpha,trans,best_w,best_id
 NGRAD = 10              # gradient channels: d_a..d_cy, dop, df_r..df_d
-GID_COL = 11            # attr column carrying the Gaussian id (f32-exact < 2^24)
-GID_LIMIT = 1 << 24     # rows of a table (B·N for a camera batch) the f32 id
-                        # channel routes exactly
+GID_COL = 11            # the Gaussian id's low 24 bits, as a float (exact)
+GID_HI_COL = 12         # attribute table: the id's high bits (id >> 24)
+SLOT_HI_COL = 10        # gradient slot rows: the id's high bits
+GID_LO_BITS = 24        # a float32 holds every integer below 2^24 exactly
+GID_LIMIT = 2**31 - 1   # rows of a table (B·N for a camera batch) the id
+                        # routes exactly: the sort key hi·2^24 + lo, and the
+                        # out-of-range id N of unfilled rows, are int32
 TRANS_EPS = 1e-4        # early-termination threshold, per tile
 GRAD_SORT_DEFAULT = "f32"   # the backward's sort payload: exact f32
 GRAD_SORT_MODES = ("f32", "f16", "bf16")
@@ -219,12 +228,33 @@ def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
 composite_fwd.launches = 0
 
 
+def gid_split(ids: torch.Tensor):
+    """Integer Gaussian ids as the two float32 columns that carry them:
+    (id mod 2^24, id >> 24), each exact. Below 2^24 the high part is 0 and
+    the low part is the id, as the JAX package's single float column."""
+    ids = ids.to(torch.int64)
+    return ((ids & ((1 << GID_LO_BITS) - 1)).to(torch.float32),
+            (ids >> GID_LO_BITS).to(torch.float32))
+
+
+def slot_ids(slots: torch.Tensor, n_gauss: int) -> torch.Tensor:
+    """The int32 Gaussian id of every slot row, the gradient sort's key:
+    hi·2^24 + lo from ``SLOT_HI_COL`` and ``GID_COL``. Tables below 2^24
+    rows carry no high part, and their key is ``GID_COL`` alone."""
+    lo = slots[:, GID_COL].to(torch.int32)
+    if n_gauss < 1 << GID_LO_BITS:
+        return lo
+    return (slots[:, SLOT_HI_COL].to(torch.int32) << GID_LO_BITS) + lo
+
+
 def _slot_buffer(c_cap: int, n_gauss: int, dev) -> torch.Tensor:
     """The (c_cap * CHUNK, NFEAT) slot buffer before K3: zero payload and the
-    out-of-range id ``n_gauss`` in GID_COL, which the rows no pair fills
-    keep."""
+    out-of-range id ``n_gauss`` (GID_COL and SLOT_HI_COL), which the rows no
+    pair fills keep."""
     slots = torch.zeros((c_cap * CHUNK, NFEAT), dtype=torch.float32, device=dev)
-    slots[:, GID_COL] = float(n_gauss)
+    slots[:, GID_COL] = float(n_gauss & ((1 << GID_LO_BITS) - 1))
+    if n_gauss >> GID_LO_BITS:
+        slots[:, SLOT_HI_COL] = float(n_gauss >> GID_LO_BITS)
     return slots
 
 
@@ -238,7 +268,8 @@ def composite_bwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     forward replayed as ``composite_fwd_plain`` computes it, the ten gradient
     channels per pair summed over the tile's pixels, and row
     ``(chunk0[t] + k) * CHUNK + i`` of ``_slot_buffer`` written for every
-    pair of the first ``allowed[t]`` chunks (Gaussian id in GID_COL)."""
+    pair of the first ``allowed[t]`` chunks (the pair's Gaussian id in
+    GID_COL and SLOT_HI_COL, from ``pair_gauss``)."""
     dev = attrs.device
     n_tiles = tile_start.shape[0]
     cam_tiles = cam_tiles or max(n_tiles, 1)
@@ -264,6 +295,9 @@ def composite_bwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
             act = k < allow
             co, valid, alpha, raw = _plain_chunk(attrs, pair_gauss, start,
                                                  count, k, ox, oy, px, py)
+            idx = torch.clamp(start[:, None] + k * CHUNK + lanes, 0,
+                              pair_gauss.shape[0] - 1)
+            lo, hi = gid_split(pair_gauss[idx])
             t_run = torch.cumprod(torch.cat([trans[:, None, :], 1.0 - alpha],
                                             1), 1)
             t_at = t_run[:, :-1]
@@ -288,7 +322,7 @@ def composite_bwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                 dpower.sum(-1) / torch.where(op > 0, op, 1.0),
                 (g0 * w).sum(-1), (g1 * w).sum(-1), (g2 * w).sum(-1),
                 (g3 * w).sum(-1),
-                zeros, co[..., GID_COL], zeros, zeros, zeros, zeros,
+                hi, lo, zeros, zeros, zeros, zeros,
             ], dim=-1)                                   # (b, CHUNK, NFEAT)
             dest = (ch0 + k)[:, None] * CHUNK + lanes
             keep = act[:, None] & valid
@@ -304,7 +338,8 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                   fwd_out: torch.Tensor, gout: torch.Tensor, c_cap: int,
                   tiles_x: int, cam_tiles: int = 0) -> torch.Tensor:
     """K3 wrapper: the (c_cap * CHUNK, NFEAT) float32 slot buffer of per-pair
-    gradient rows (channels 0..NGRAD-1, Gaussian id in GID_COL). Rows no pair
+    gradient rows (channels 0..NGRAD-1; the Gaussian id's low 24 bits in
+    GID_COL and its high bits in SLOT_HI_COL, ``slot_ids``). Rows no pair
     fills (lanes past a chunk's last pair, slots past a tile's allowed
     chunks) keep zero payload and the out-of-range id N = ``attrs.shape[0]``.
 
@@ -411,9 +446,8 @@ def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     slots = composite_bwd(attrs, pair_gauss, tile_start, tile_count, chunk0,
                           allowed, fwd_out, gout, groups * c_cap, tiles_x,
                           cam_tiles)
-    ids_sorted, perm = torch.sort(slots[:, GID_COL].to(torch.int32),
-                                  stable=True)
     n = attrs.shape[0]
+    ids_sorted, perm = torch.sort(slot_ids(slots, n), stable=True)
     grads = slots[:, :NGRAD]
     scales = None
     if grad_sort == "f16":
@@ -478,14 +512,21 @@ def attr_composite(attrs: torch.Tensor, pair_gauss: torch.Tensor,
 def attribute_table(proj: ProjectedGaussians,
                     semantic_ids: torch.Tensor) -> torch.Tensor:
     """The per-Gaussian (N, NFEAT) table: conic a/b/c, mean x/y, opacity,
-    rgb, depth, semantic id, Gaussian id (GID_COL), 4 zero pads. For a
-    camera batch ((B, N, ...) fields) the (B·N, NFEAT) table of every
-    camera's rows, row b·N + g, whose id is the row."""
+    rgb, depth, semantic id, the Gaussian id's low 24 bits (GID_COL), its
+    high bits (GID_HI_COL, 0 below 2^24 rows), 3 zero pads. For a camera
+    batch ((B, N, ...) fields) the (B·N, NFEAT) table of every camera's
+    rows, row b·N + g, whose id is the row."""
     shape = proj.depths.shape
     dev = proj.depths.device
     zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
-    rows = torch.arange(proj.depths.numel(), dtype=torch.float32,
-                        device=dev).view(shape)
+    n_rows = proj.depths.numel()
+    if n_rows <= 1 << GID_LO_BITS:
+        rows = torch.arange(n_rows, dtype=torch.float32, device=dev)
+        hi = zeros
+    else:
+        rows, hi = gid_split(torch.arange(n_rows, device=dev))
+        hi = hi.view(shape)
+    rows = rows.view(shape)
     return torch.stack([
         proj.conics[..., 0], proj.conics[..., 1], proj.conics[..., 2],
         proj.means2d[..., 0], proj.means2d[..., 1],
@@ -494,7 +535,8 @@ def attribute_table(proj: ProjectedGaussians,
         proj.depths,
         semantic_ids.to(torch.float32).expand(shape),
         rows,                                               # GID_COL
-        zeros, zeros, zeros, zeros,
+        hi,                                                 # GID_HI_COL
+        zeros, zeros, zeros,
     ], dim=-1).reshape(-1, NFEAT)
 
 
@@ -548,7 +590,7 @@ def composite_tiles_cuda(
     in one K3 and one K4 launch, and give (B, H, W, ...) images with
     per-camera ``grad_chunks`` and ``tile_overflow``; ``pair_capacity``,
     ``tile_capacity`` and ``grad_capacity`` apply to each camera. B·N must
-    stay below ``GID_LIMIT``.
+    stay below ``GID_LIMIT`` (2^31 - 1).
     """
     mode = grad_sort if grad_sort is not None else (
         "bf16" if grad_sort_bf16 else GRAD_SORT_DEFAULT)
@@ -572,15 +614,13 @@ def composite_tiles_cuda(
         groups = 1
 
     n = proj.depths.numel()
-    # The backward routes gradients by a float32 row id (GID_COL), exact
-    # only below 2^24: refuse larger scenes or batches here, as the JAX
-    # package does (render_batch splits a batch into groups below it).
+    # The backward routes gradients by an int32 row id carried in two f32
+    # columns (``gid_split``): refuse tables the id cannot name.
     if n >= GID_LIMIT:
         raise ValueError(
             f"composite_tiles_cuda: {n} Gaussian rows (cameras x Gaussians) "
-            ">= 2^24; the f32 id channel of the backward would mis-route "
-            "gradients. Use the torch compositor, fewer cameras a batch, or "
-            "shard the scene.")
+            ">= 2^31 - 1; the backward's int32 row id would mis-route "
+            "gradients. Render fewer cameras a batch.")
     attrs = attribute_table(proj, semantic_ids)
     out, kend = attr_composite(attrs, pair_gauss_t, tile_start_t, count_c,
                                tiles_x, c_cap, mode, cam_tiles=n_tiles,

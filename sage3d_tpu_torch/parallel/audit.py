@@ -24,15 +24,18 @@ import torch
 
 from ..renderer.camera import agent_camera, stack_cameras
 from ..renderer.scene import synthetic_room
+from ..utils import profiling
 from .mesh import Mesh, all_gather, shard_rows
-from .train import (TRAINABLE, init_train_state, make_optimizer,
-                    make_train_step, pad_scene_to, all_gather_bucketed)
+from .train import (SPLAT_DIFF, SPLAT_META, TRAINABLE, init_train_state,
+                    make_optimizer, make_train_step, pad_scene_to,
+                    all_gather_bucketed)
 
 
 def audit_sharded_step(mesh: Mesh, n_gauss: int = 256, width: int = 64,
                        height: int = 64, grad_buckets: int = 4,
                        backend=None, pair_capacity: int = 1 << 14,
-                       tile_capacity: int = 256) -> Dict:
+                       tile_capacity: int = 256,
+                       gather: str = "params") -> Dict:
     """Run one sharded train step (``force_shard_map``, so a one-rank mesh
     takes the collective path too) on ``synthetic_room(n_gauss, seed=3)``
     and 2 cameras per data rank, and return the audit: the collectives the
@@ -43,7 +46,14 @@ def audit_sharded_step(mesh: Mesh, n_gauss: int = 256, width: int = 64,
     step and rank by the JAX package's formula, the step's collective
     milliseconds (the device synchronized around each) and the transport.
     ``backend`` None: ``cuda`` on the card, ``torch`` on the CPU. Raises
-    AssertionError when a kind falls short or a group is not sharded."""
+    AssertionError when a kind falls short or a group is not sharded.
+
+    ``gather="splats"`` audits the splat layout instead: ``grad_buckets``
+    gathers of the splats' values and as many of their metadata, and
+    ``grad_buckets`` reduce-scatters of their gradients; its wire bytes are
+    the splats' (14 floats a Gaussian a camera gathered, 10 scattered back)
+    where the parameter layout's are the parameters' both ways.
+    ``audit_layouts`` runs both."""
     dev = mesh.device
     backend = backend or ("cuda" if dev.type == "cuda" else "torch")
     n_data, n_tile = mesh.shape["data"], mesh.shape["tile"]
@@ -60,7 +70,8 @@ def audit_sharded_step(mesh: Mesh, n_gauss: int = 256, width: int = 64,
                               optimizer=opt, backend=backend,
                               pair_capacity=pair_capacity,
                               tile_capacity=tile_capacity,
-                              grad_buckets=grad_buckets, force_shard_map=True)
+                              grad_buckets=grad_buckets, force_shard_map=True,
+                              gather=gather)
     state = init_train_state(scene, opt, mesh)
     n_rows = scene.num_gaussians
     shards = {}
@@ -81,22 +92,33 @@ def audit_sharded_step(mesh: Mesh, n_gauss: int = 256, width: int = 64,
         mesh.counter.timed = False
     written = mesh.counter.counts(apart=("loss",))
     summary = mesh.counter.summary()
-    expect = grad_buckets * len(TRAINABLE)
-    for kind in ("all_gather", "reduce_scatter"):
-        if written.get(kind, 0) < expect:
+    if gather == "splats":
+        expect = {"all_gather": 2 * grad_buckets,
+                  "reduce_scatter": grad_buckets}
+    else:
+        expect = dict.fromkeys(("all_gather", "reduce_scatter"),
+                               grad_buckets * len(TRAINABLE))
+    for kind, want in expect.items():
+        if written.get(kind, 0) < want:
             raise AssertionError(
                 f"the step issued {written.get(kind, 0)} {kind}s, expected "
-                f">= {expect} ({grad_buckets} buckets x {len(TRAINABLE)} "
-                "groups)")
+                f">= {want} ({grad_buckets} buckets, {gather} layout)")
 
     param_bytes = sum(int(np.prod(getattr(scene, k).shape)) * 4
                       for k in TRAINABLE)
-    wire = 2 * param_bytes * (n_tile - 1) / max(n_tile, 1)
+    share = (n_tile - 1) / max(n_tile, 1)
+    if gather == "splats":
+        splat_rows = n_rows * cams.position.shape[0] // n_data
+        wire = splat_rows * (2 * SPLAT_DIFF + SPLAT_META) * 4 * share
+    else:
+        wire = 2 * param_bytes * share
     return {
         "mesh": dict(mesh.shape),
+        "gather": gather,
         "grad_buckets": grad_buckets,
         "written_collectives": written,
-        "expected_written_per_kind": expect,
+        "expected_written_per_kind": (expect["all_gather"]
+                                      if gather == "params" else expect),
         **{f"optimized_{kind}": {"count": s["count"], "bytes": s["bytes"]}
            for kind, s in summary.items()},
         "param_shards": shards,
@@ -108,6 +130,14 @@ def audit_sharded_step(mesh: Mesh, n_gauss: int = 256, width: int = 64,
             "transport": mesh.transport,
         },
     }
+
+
+def audit_layouts(mesh: Mesh, **kw) -> Dict:
+    """``audit_sharded_step`` of each layout on the same scene and
+    cameras: {"params": ..., "splats": ...}, their collectives and wire
+    bytes side by side."""
+    return {g: audit_sharded_step(mesh, gather=g, **kw)
+            for g in ("params", "splats")}
 
 
 def audit_bucketed_gather(x: torch.Tensor, n_buckets: int, mesh: Mesh,
@@ -158,3 +188,29 @@ def trace_sharded_steps(template, cameras, targets, optimizer,
                    for k in TRAINABLE},
         "counts": counts,
     }
+
+
+def compare_layouts(template, cameras, targets, optimizer, n_steps: int,
+                    mesh: Mesh, **step_kw) -> Dict:
+    """``trace_sharded_steps`` of the parameter layout and of the splat
+    layout from the same start, and the Gaussian rows each rank projected
+    a step under each (the recorder's ``projection.rows``), gathered
+    rank-major: {"params": ..., "splats": ..., "rows": {layout: (ranks,)}}.
+    """
+    out, rows = {}, {}
+    for gather in ("params", "splats"):
+        profiling.reset()
+        profiling.enable()
+        try:
+            out[gather] = trace_sharded_steps(template, cameras, targets,
+                                              optimizer, n_steps, mesh,
+                                              gather=gather, **step_kw)
+        finally:
+            profiling.disable()
+        n = profiling.counters().get("projection.rows", 0) / n_steps
+        profiling.reset()
+        rows[gather] = all_gather(torch.tensor([n], dtype=torch.float64,
+                                               device=mesh.device),
+                                  mesh, None)
+    out["rows"] = rows
+    return out

@@ -19,7 +19,8 @@ creates all of them in the same order, as ``torch.distributed`` requires.
 Every collective of the port goes through the helpers below (``all_gather``,
 ``reduce_scatter``, ``all_reduce``, ``broadcast``), which count each call in
 the mesh's ``CollectiveCounter`` by kind, axis, tag and bytes; ``audit.py``
-reads it. A one-rank mesh needs no process group: its collectives are
+reads it. With the recorder on (``utils/profiling.py``) each is also a span
+``mesh.<kind>`` counting ``mesh.bytes`` and ``mesh.link_bytes``. A one-rank mesh needs no process group: its collectives are
 identities that still count.
 
 The transport is NCCL when every rank has a card of its own, else gloo
@@ -51,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from ..renderer.scene import resolve_device
+from ..utils.profiling import count as add_count, span
 
 AXES = ("data", "tile")
 TIMEOUT_S = 300.0       # a collective, a rendezvous, a spawned mesh
@@ -220,21 +222,43 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
 
 # --- collectives ------------------------------------------------------------
 
+def link_bytes(kind: str, n: int, result_bytes: int,
+               receives: bool = True) -> int:
+    """The least bytes that must enter a rank over its links for one
+    collective among ``n`` ranks whose result on the rank is
+    ``result_bytes``: an all-gather brings in the other ranks' (n - 1) / n
+    of it, a reduce-scatter and an all-reduce at least the others' sum
+    (the result's size), a broadcast its size where the rank is not the
+    source. 0 on one rank."""
+    if n <= 1 or not receives:
+        return 0
+    if kind == "all_gather":
+        return result_bytes * (n - 1) // n
+    return result_bytes
+
+
 def _collective(mesh: Mesh, kind: str, axis: Optional[str], tag: str,
-                call, result_bytes: int) -> None:
+                call, result_bytes: int, receives: bool = True) -> None:
     """Run ``call(group)`` on ``axis``'s group (no group on a one-rank
-    mesh) and count it."""
+    mesh) and count it: in the mesh's counter, and on the recorder as the
+    span ``mesh.<kind>`` with the counters ``mesh.bytes`` (the result's
+    bytes) and ``mesh.link_bytes`` (``link_bytes``)."""
     timed = mesh.counter.timed
     on_card = mesh.device.type == "cuda"
     if timed and on_card:
         torch.cuda.synchronize(mesh.device)
-    t0 = time.perf_counter()
-    call(mesh.group(axis))
-    ms = None
-    if timed:
-        if on_card:
-            torch.cuda.synchronize(mesh.device)
-        ms = (time.perf_counter() - t0) * 1e3
+    n = mesh.axis_size(axis) if mesh.transport != "none" else 1
+    with span(f"mesh.{kind}"):
+        add_count("mesh.bytes", result_bytes)
+        add_count("mesh.link_bytes",
+                  link_bytes(kind, n, result_bytes, receives))
+        t0 = time.perf_counter()
+        call(mesh.group(axis))
+        ms = None
+        if timed:
+            if on_card:
+                torch.cuda.synchronize(mesh.device)
+            ms = (time.perf_counter() - t0) * 1e3
     mesh.counter.records.append({"kind": kind, "axis": axis, "tag": tag,
                                  "bytes": result_bytes, "ms": ms})
 
@@ -296,7 +320,8 @@ def broadcast(x: torch.Tensor, mesh: Mesh, src: int = 0,
     def call(group):
         if mesh.transport != "none":
             dist.broadcast(x, src, group=group)
-    _collective(mesh, "broadcast", None, tag, call, _nbytes(x))
+    _collective(mesh, "broadcast", None, tag, call, _nbytes(x),
+                receives=mesh.rank != src)
     return x
 
 

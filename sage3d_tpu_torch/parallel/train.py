@@ -22,6 +22,17 @@ this rank's band of rows for each of its cameras (its rows of the batch over
 "data"), reduce-scatters the gradients once in the same chunks over "tile"
 and all-reduces them over "data". Without a mesh (or on a one-rank mesh) the
 step renders the whole frame on one device with no collective.
+
+``gather="splats"`` selects the second sharded layout, for scenes whose
+parameters no rank can gather whole: each rank projects only its own row
+shard (under autograd), the ranks all-gather the projected splats (ten
+differentiable values and four of metadata a Gaussian, against 59 raw
+parameters), each renders its band from them, and the splats' gradients
+are reduce-scattered back to the shard owners, whose projection backward
+gives the parameter gradients. Both layouts give the same loss, gradients
+and parameters up to the band's rounding of the 2D means (a band projects
+with its shifted camera in the parameter layout and shifts the full frame's
+means here) and the order of the sums.
 """
 
 from __future__ import annotations
@@ -32,14 +43,26 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..ops.binning import TILE_H
-from ..renderer.camera import Camera, unstack_cameras
-from ..renderer.render import render, render_batch
+from ..ops.projection import ProjectedGaussians, project_gaussians
+from ..renderer.camera import (Camera, slice_cameras, stack_cameras,
+                               unstack_cameras)
+from ..renderer.render import (camera_groups, render, render_batch,
+                               render_projected)
 from ..renderer.scene import GaussianScene
-from ..utils.profiling import span
+from ..utils.profiling import count as add_count, span
 from .mesh import (Mesh, all_reduce, gather_into, make_mesh,
                    reduce_scatter_into, shard_rows)
 
 TRAINABLE = ("means", "log_scales", "quats", "opacity_logits", "sh")
+
+# The sharded step's layouts: gather the raw parameters (the JAX package's)
+# or the projected splats.
+GATHERS = ("params", "splats")
+# A projected splat as the splat layout gathers it: the differentiable
+# fields (means2d 2, conics 3, depth, colour 3, opacity) and the metadata
+# (extents 2, radius, visible), float32 each.
+SPLAT_DIFF = 10
+SPLAT_META = 4
 
 # Classic 3DGS per-group learning rates (positions far slower than opacity);
 # ``means`` scales with the scene extent.
@@ -179,6 +202,51 @@ def all_gather_bucketed(x: torch.Tensor, mesh: Mesh, axis: str,
     return _AllGatherBucketed.apply(x, mesh, axis, n_buckets, tag)
 
 
+def pack_splats(proj: ProjectedGaussians):
+    """A projection of B cameras ((B, s, ...) fields) as the rows the splat
+    layout gathers: (s, B * SPLAT_DIFF) differentiable values and
+    (s, B * SPLAT_META) metadata (extents, radius, visible as floats; the
+    radii and flags are small integers, exact in float32)."""
+    diff = torch.cat([proj.means2d, proj.conics, proj.depths[..., None],
+                      proj.colors, proj.opacities[..., None]], -1)
+    meta = torch.cat([proj.extents, proj.radii[..., None].to(torch.float32),
+                      proj.visible[..., None].to(torch.float32)], -1)
+    s = diff.shape[1]
+    return (diff.transpose(0, 1).reshape(s, -1),
+            meta.detach().transpose(0, 1).reshape(s, -1))
+
+
+def band_splats(diff: torch.Tensor, meta: torch.Tensor, n_cams: int,
+                y0: int, band_h: int) -> ProjectedGaussians:
+    """The gathered rows (N, B * SPLAT_DIFF) and (N, B * SPLAT_META) as the
+    (B, N, ...) projection of a band of ``band_h`` image rows from row
+    ``y0``: the means shifted up by ``y0``, and a splat visible where it was
+    in the frame and its extent box reaches into the band (radius and
+    extents zero elsewhere, as ``project_gaussians`` gives a band
+    camera)."""
+    n = diff.shape[0]
+    d = diff.view(n, n_cams, SPLAT_DIFF).transpose(0, 1)
+    m = meta.view(n, n_cams, SPLAT_META).transpose(0, 1)
+    v = d[..., 1] - float(y0)
+    ext = m[..., 0:2]
+    visible = ((m[..., 3] > 0) & (v + ext[..., 1] > 0)
+               & (v - ext[..., 1] < band_h))
+    return ProjectedGaussians(
+        means2d=torch.stack([d[..., 0], v], -1),
+        conics=d[..., 2:5],
+        depths=d[..., 5],
+        radii=torch.where(visible, m[..., 2], 0.0).to(torch.int32),
+        colors=d[..., 6:9],
+        opacities=d[..., 9],
+        visible=visible,
+        extents=torch.where(visible[..., None], ext, 0.0))
+
+
+def _proj_rows(proj: ProjectedGaussians, sl) -> ProjectedGaussians:
+    """Cameras ``sl`` (an index or a slice) of a batched projection."""
+    return ProjectedGaussians(*(f[sl] for f in proj))
+
+
 def _as_mesh(mesh, force_shard_map: bool, device) -> Optional[Mesh]:
     """The mesh the step runs on, or None for the direct path: no mesh, a
     one-rank shape such as ``(1, 1)``, or a one-rank ``Mesh`` unless
@@ -201,7 +269,8 @@ def make_train_step(template: GaussianScene, camera: Camera, mesh=None,
                     optimizer: Optional[Optimizer] = None,
                     data_axis: str = "data", tile_axis: str = "tile",
                     backend: str = "torch", grad_buckets: int = 4,
-                    force_shard_map: bool = False, **render_kw):
+                    force_shard_map: bool = False, gather: str = "params",
+                    **render_kw):
     """Build the train step.
 
     ``template`` supplies the non-trainable fields (semantic ids) and the
@@ -221,12 +290,22 @@ def make_train_step(template: GaussianScene, camera: Camera, mesh=None,
     gradient over ``data_axis``, and one all-reduce of the loss over every
     rank, whatever the batch; every rank returns the same loss.
 
+    ``gather`` picks the sharded layout: ``"params"`` (the JAX package's,
+    above) or ``"splats"``: each rank projects its own row shard, a step
+    issues ``grad_buckets`` all-gathers of the splats' values and as many of
+    their metadata, and ``grad_buckets`` reduce-scatters of their gradients,
+    over ``tile_axis``; the all-reduces over ``data_axis`` and of the loss
+    are the same. Without a mesh both are the direct path.
+
     Returns (train_step, optimizer):
     ``train_step(state, cam_batch, targets (B, H, W, 3)) -> (state, loss)``;
     ``train_step.adc(...) -> (state, loss, gnorm)`` also returns the norms of
     the ``means`` gradient rows this rank holds (N,) or (N / n_tile,), the
     densification score. The loss is a detached scalar tensor.
     """
+    if gather not in GATHERS:
+        raise ValueError(f"make_train_step: gather must be one of {GATHERS},"
+                         f" got {gather!r}")
     mesh = _as_mesh(mesh, force_shard_map, template.device)
     if optimizer is None:
         optimizer = make_optimizer()
@@ -303,10 +382,87 @@ def make_train_step(template: GaussianScene, camera: Camera, mesh=None,
             all_reduce(state.params[k].grad, mesh, data_axis, tag="grads")
         return all_reduce(total, mesh, None, tag="loss") / n_px
 
-    loss_and_grads = direct_loss if mesh is None else sharded_loss
+    # the splat layout projects with the frame's clamp and renders the rest
+    proj_kw = {k: v for k, v in render_kw.items() if k == "sh_degree"}
+    band_kw = {k: v for k, v in render_kw.items()
+               if k not in ("sh_degree", "clamp_dims")}
+
+    def splat_error(proj: ProjectedGaussians, cams, targets, n_px):
+        """Backpropagate the masked error of this band / n_px from the
+        band's splats: on the ``cuda`` backend one render a group of
+        cameras, else camera by camera. Returns the summed error,
+        detached."""
+        if targets.shape[1] < n_tile * band_h:    # pad rows to the band grid
+            targets = torch.nn.functional.pad(
+                targets, (0, 0, 0, 0, 0, n_tile * band_h - targets.shape[1]))
+        if backend == "cuda":
+            parts = [(sl, slice_cameras(cams, sl)) for sl in camera_groups(
+                cams.position.shape[0], proj.depths.shape[1])]
+        else:
+            parts = list(enumerate(unstack_cameras(cams)))
+        total = torch.zeros((), dtype=torch.float32, device=targets.device)
+        for sl, cam in parts:
+            with span("train.forward"):
+                out = render_projected(_proj_rows(proj, sl),
+                                       template.semantic_ids, cam,
+                                       backend=backend, **band_kw)
+            with span("train.loss"):
+                err = torch.sum(((out["rgb"] - targets[sl, y0:y0 + band_h])
+                                 ** 2) * mask)
+            if err.requires_grad:   # else no Gaussian reaches this band
+                with span("train.backward"):
+                    (err / n_px).backward()
+            total = total + err.detach()
+        return total
+
+    def splat_loss(state: TrainState, cam_batch, targets) -> torch.Tensor:
+        """Project this rank's shard, gather the splats, render this band
+        from them and backpropagate into the gathered splats; then
+        reduce-scatter the splats' gradients to their owners over the tile
+        axis, run the shard's projection backward into its ``.grad`` and
+        all-reduce that over the data axis."""
+        n_px = targets.shape[0] * n_data * height * width * 3
+        n_cams = cam_batch.position.shape[0]
+        shard = GaussianScene(**state.params,
+                              semantic_ids=shard_rows(template.semantic_ids,
+                                                      mesh, tile_axis))
+        cams = cam_batch if cam_batch.position.dim() == 2 else \
+            stack_cameras([cam_batch])
+        with span("train.project_shard"):
+            proj = project_gaussians(shard, cams, clamp_dims=(width, height),
+                                     **proj_kw)
+            diff, meta = pack_splats(proj)
+        rows = diff.detach().requires_grad_(True)
+        with span("train.gather_splats"):
+            full = all_gather_bucketed(rows, mesh, tile_axis, grad_buckets,
+                                       tag="splats")
+            full_meta = all_gather_bucketed(meta, mesh, tile_axis,
+                                            grad_buckets, tag="splat_meta")
+        leaves = full.detach().requires_grad_(True)
+        band_cams = cams._replace(cy=cams.cy - y0, height=band_h)
+        total = splat_error(band_splats(leaves, full_meta, n_cams, y0, band_h),
+                            band_cams, targets, n_px)
+        with span("train.scatter_splat_grads"):
+            full.backward(leaves.grad if leaves.grad is not None
+                          else torch.zeros_like(leaves))
+        with span("train.project_shard"):
+            diff.backward(rows.grad)
+        for k in TRAINABLE:
+            if state.params[k].grad is None:
+                state.params[k].grad = torch.zeros_like(state.params[k])
+            all_reduce(state.params[k].grad, mesh, data_axis, tag="grads")
+        return all_reduce(total, mesh, None, tag="loss") / n_px
+
+    if mesh is None:
+        loss_and_grads = direct_loss
+    else:
+        loss_and_grads = splat_loss if gather == "splats" else sharded_loss
 
     def _step(state, cam_batch, targets, adc: bool):
         with span("train.step", unit=True):
+            add_count("train.scene_rows", template.num_gaussians * (
+                cam_batch.position.shape[0]
+                if cam_batch.position.dim() == 2 else 1))
             opt = state.opt_state
             opt.zero_grad(set_to_none=True)
             loss = loss_and_grads(state, cam_batch, targets)

@@ -52,6 +52,7 @@ class TrainerConfig:
     lr: float = 1e-3
     steps: int = 200
     mesh_shape: tuple = (1, 1)
+    gather: str = "params"      # the sharded layout (parallel.train.GATHERS)
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 100
     log_every: int = 20
@@ -108,10 +109,11 @@ def fit_scene(scene: GaussianScene, cameras: Camera, targets: torch.Tensor,
     if it holds a checkpoint (of any mesh shape). ``cameras`` and
     ``targets`` are the global batch; B must divide over the mesh's data
     axis. Outside a process group, a ``mesh_shape`` of more than one rank
-    runs under ``spawn_mesh`` on ``scene``'s device."""
+    runs under ``spawn_mesh`` on ``scene``'s kind of device (on cards, each
+    rank takes a card of its own where there are enough)."""
     if _spawned(config.mesh_shape):
         return spawn_mesh(_fit_scene, config.mesh_shape, scene, cameras,
-                          targets, config, verbose, device=scene.device)
+                          targets, config, verbose, device=scene.device.type)
     return _fit_scene(scene, cameras, targets, config, verbose,
                       mesh=_mesh_of(config.mesh_shape, scene.device))
 
@@ -123,7 +125,7 @@ def _fit_scene(scene, cameras, targets, config, verbose, mesh=None):
     targets = shard_rows(targets, mesh, "data")
     train_step, _ = make_train_step(
         template, cams, mesh=mesh, optimizer=opt, backend=config.backend,
-        **config.render_kw())
+        gather=config.gather, **config.render_kw())
     state = init_train_state(template, opt, mesh)
     verbose = verbose and (mesh is None or mesh.rank == 0)
     if config.checkpoint_dir:
@@ -209,7 +211,7 @@ def fit_scene_adaptive(scene: GaussianScene, cameras: Camera,
     if _spawned(config.mesh_shape):
         return spawn_mesh(_fit_scene_adaptive, config.mesh_shape, scene,
                           cameras, targets, config, adaptive, capacity, seed,
-                          verbose, device=scene.device)
+                          verbose, device=scene.device.type)
     return _fit_scene_adaptive(scene, cameras, targets, config, adaptive,
                                capacity, seed, verbose,
                                mesh=_mesh_of(config.mesh_shape, scene.device))
@@ -225,7 +227,7 @@ def _fit_scene_adaptive(scene, cameras, targets, config, adaptive, capacity,
     targets = shard_rows(targets, mesh, "data")
     train_step, _ = make_train_step(
         template, cams, mesh=mesh, optimizer=opt, backend=config.backend,
-        **config.render_kw())
+        gather=config.gather, **config.render_kw())
     state = init_train_state(template, opt, mesh)
     dstate = init_densify_state(state.params["means"].shape[0],
                                 device=template.means.device)

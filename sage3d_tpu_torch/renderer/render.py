@@ -32,10 +32,10 @@ import torch
 
 from ..ops.binning import (EMIT_BUDGET_KEYS, _pick_budgets, _pow2_at_least,
                            bin_gaussians, pair_count_stats)
-from ..ops.composite_cuda import GID_LIMIT, composite_tiles_cuda
+from ..ops.composite_cuda import composite_tiles_cuda
 from ..ops.composite_ref import composite_reference
 from ..ops.composite_torch import composite_tiles
-from ..ops.projection import project_gaussians
+from ..ops.projection import ProjectedGaussians, project_gaussians
 from ..utils.profiling import span
 from .camera import Camera, slice_cameras, unstack_cameras
 from .scene import GaussianScene
@@ -96,17 +96,22 @@ def autotune_all(scene: GaussianScene, camera: Camera,
 # at most: its passes hold every probed camera's projection, emission table
 # and kept pairs at once (4 cameras at 1M Gaussians).
 PROBE_ROWS = 1 << 22
+# Gaussian rows (cameras x Gaussians) of one batched ``cuda`` render. The
+# backward's row id routes up to 2^31 - 1 rows, but a group's kept pairs must
+# stay under binning's PAIR_LIMIT (int32 pair indices), and its tables and
+# pairs on the card grow with its rows: 2^24 rows (16 cameras at 1M
+# Gaussians) keeps every batch the benchmark renders in the groups it had.
+BATCH_ROWS = 1 << 24
 
 
 def camera_groups(n_cams: int, n_gauss: int,
                   max_rows: Optional[int] = None) -> list:
-    """Slices of whole cameras that one batched ``cuda`` render takes: the
-    backward routes gradients by a float32 row id, exact only below
-    ``GID_LIMIT`` rows, so a group holds at most (GID_LIMIT - 1) // N cameras
-    (16 at 1M Gaussians), and at most ``max_rows`` // N where given; one
-    camera a group where N alone reaches the limit (the compositor then
-    refuses it, as for one camera)."""
-    rows = GID_LIMIT - 1 if max_rows is None else min(GID_LIMIT - 1, max_rows)
+    """Slices of whole cameras that one batched ``cuda`` render takes: at
+    most (BATCH_ROWS - 1) // N cameras (16 at 1M Gaussians), and at most
+    ``max_rows`` // N where given; one camera a group where N alone reaches
+    the cap."""
+    rows = BATCH_ROWS - 1 if max_rows is None else min(BATCH_ROWS - 1,
+                                                        max_rows)
     size = max(1, rows // max(n_gauss, 1))
     return [slice(i, min(i + size, n_cams)) for i in range(0, n_cams, size)]
 
@@ -115,7 +120,8 @@ def camera_groups(n_cams: int, n_gauss: int,
 def autotune_poses(scene: GaussianScene, cameras: Camera,
                    pair_margin: float = 1.5,
                    sh_degree: Optional[int] = None,
-                   grad_margin: Optional[float] = None) -> Dict[str, int]:
+                   grad_margin: Optional[float] = None,
+                   clamp_dims: Optional[tuple] = None) -> Dict[str, int]:
     """Budgets safe across many camera poses (a stacked Camera of probe
     poses): the budgets cover the worst pose, and ``pair_capacity`` /
     ``tile_capacity`` are the worst measured pose x ``pair_margin``.
@@ -126,13 +132,14 @@ def autotune_poses(scene: GaussianScene, cameras: Camera,
     Gaussian rows: each group is one batched projection with its pair
     counts, one batched binning and (with ``grad_margin``) one batched
     ``cuda`` forward, and the host reads a few values a group, not two a
-    pose."""
+    pose. ``clamp_dims`` as in ``render``: the band cameras of a sharded
+    step project with the whole frame's clamp."""
     groups = camera_groups(cameras.position.shape[0], scene.num_gaussians,
                            PROBE_ROWS)
     rows = [pair_count_stats(
         project_gaussians(scene, slice_cameras(cameras, sl),
-                          sh_degree=sh_degree), cameras.width, cameras.height)
-        for sl in groups]
+                          sh_degree=sh_degree, clamp_dims=clamp_dims),
+        cameras.width, cameras.height) for sl in groups]
     # each statistic's worst pose
     stats = {k: torch.cat([r[k] for r in rows]).amax(0) for k in rows[0]}
     budgets = _pick_budgets(_host_stats(stats), scene.num_gaussians)
@@ -140,7 +147,8 @@ def autotune_poses(scene: GaussianScene, cameras: Camera,
     worst = []
     for sl in groups:
         cams = slice_cameras(cameras, sl)
-        bins = _bin_with(project_gaussians(scene, cams, sh_degree=sh_degree),
+        bins = _bin_with(project_gaussians(scene, cams, sh_degree=sh_degree,
+                                           clamp_dims=clamp_dims),
                          cams, budgets)
         worst.append(torch.stack([bins.tile_count.max().to(torch.int64),
                                   bins.n_pairs.max().to(torch.int64)]))
@@ -153,7 +161,8 @@ def autotune_poses(scene: GaussianScene, cameras: Camera,
     if grad_margin is not None:
         chunks = int(torch.cat([
             render(scene, slice_cameras(cameras, sl), backend="cuda",
-                   sh_degree=sh_degree, **budget_kwargs(budgets))
+                   sh_degree=sh_degree, clamp_dims=clamp_dims,
+                   **budget_kwargs(budgets))
             ["grad_chunks"] for sl in groups]).max())
         budgets["grad_capacity"] = -(-int(chunks * grad_margin + 64) // 64) * 64
         budgets["grad_chunks_measured"] = chunks
@@ -219,72 +228,123 @@ def render(
     (``render_batch``'s batched path): every output then has a leading
     camera axis, ``overflow`` and ``grad_chunks`` are (B,), the budgets
     apply per camera, and each camera's outputs are bitwise its own render.
+
+    ``render`` is the projection (``project_gaussians``) followed by
+    ``render_projected``, which bins and composites splats already
+    projected.
     """
-    width, height = camera.width, camera.height
     single = camera.position.dim() == 1
     if not single and backend != "cuda":
         raise ValueError(f"render: the {backend} backend takes one camera; "
                          "render_batch renders a stacked batch")
-    dev = scene.device
     with span("render", unit=True):
         with span("render.project"):
             proj = project_gaussians(scene, camera, sh_degree=sh_degree,
                                      clamp_dims=clamp_dims)
+        return _composite_projected(
+            proj, scene.semantic_ids, camera, backend=backend,
+            bg_color=bg_color, pair_capacity=pair_capacity,
+            tile_capacity=tile_capacity, chunk=chunk, k_small=k_small,
+            m_big=m_big, k_big=k_big, m_mid=m_mid, k_mid=k_mid,
+            grad_sort_bf16=grad_sort_bf16, grad_sort=grad_sort,
+            grad_capacity=grad_capacity)
 
-        if backend == "oracle":
-            with span("render.composite"):
-                out = composite_reference(proj, scene.semantic_ids, width,
-                                          height)
-            overflow = torch.zeros((), dtype=torch.int32, device=dev)
-        elif backend in ("torch", "cuda"):
-            # bins and the cuda compositor's outputs carry a leading camera
-            # axis (B = 1 for one camera), taken off once below
-            with span("render.bin"):
-                bins = bin_gaussians(proj, width, height, k_small=k_small,
-                                     m_big=m_big, k_big=k_big, m_mid=m_mid,
-                                     k_mid=k_mid)
-            with span("render.composite"):
-                if backend == "torch":
-                    out = {k: v[None] for k, v in composite_tiles(
-                        proj, scene.semantic_ids, bins, width, height,
-                        tile_capacity=tile_capacity, chunk=chunk).items()}
-                else:
-                    if pair_capacity is None:
-                        pair_capacity = default_pair_capacity(
-                            scene.num_gaussians, width, height)
-                    out = composite_tiles_cuda(
-                        proj, scene.semantic_ids, bins, width, height,
-                        tile_capacity=tile_capacity,
-                        pair_capacity=pair_capacity,
-                        grad_sort_bf16=grad_sort_bf16, grad_sort=grad_sort,
-                        grad_capacity=grad_capacity)
-            overflow = (bins.overflow + out.pop("tile_overflow")).to(
-                torch.int32)
-            if single:
-                out = {k: v[0] for k, v in out.items()}
-                overflow = overflow[0]
-        else:
-            raise ValueError(f"unknown backend: {backend}")
 
-        # the background per channel from Python numbers: a tensor of them
-        # would be a host-to-device copy, which waits for the card
-        rgb = torch.stack([out["rgb"][..., i] + out["trans"] * float(c)
-                           for i, c in enumerate(bg_color)], -1)
-        depth = out["depth_acc"] + out["trans"] * camera.far
-        grad_chunks = out.pop("grad_chunks", None)
-        return {
-            "rgb": rgb,
-            "depth": depth,
-            "alpha": out["alpha"],
-            "semantic": out["semantic"],
-            "trans": out["trans"],
-            "depth_acc": out["depth_acc"],
-            "rgb_acc": out["rgb"],
-            "overflow": overflow,
-            "grad_chunks": (grad_chunks if grad_chunks is not None
-                            else torch.zeros((), dtype=torch.int32,
-                                             device=dev)),
-        }
+def render_projected(proj: ProjectedGaussians, semantic_ids: torch.Tensor,
+                     camera: Camera, backend: str = "cuda",
+                     bg_color=(0.0, 0.0, 0.0), **budgets
+                     ) -> Dict[str, torch.Tensor]:
+    """``render``'s outputs from splats already projected for ``camera``
+    (its size, ``far`` and whether it is one camera or a batch): binning
+    and compositing, differentiable in ``proj``'s float fields.
+    ``budgets``: ``render``'s keyword arguments after ``clamp_dims``. The
+    sharded train step's splat layout projects each rank's shard, gathers
+    the splats and renders its band with this."""
+    if camera.position.dim() != 1 and backend != "cuda":
+        raise ValueError(f"render: the {backend} backend takes one camera; "
+                         "render_batch renders a stacked batch")
+    with span("render", unit=True):
+        return _composite_projected(proj, semantic_ids, camera, backend,
+                                    bg_color, **budgets)
+
+
+def _composite_projected(
+    proj: ProjectedGaussians,
+    semantic_ids: torch.Tensor,
+    camera: Camera,
+    backend: str,
+    bg_color,
+    pair_capacity: Optional[int] = None,
+    tile_capacity: int = 1024,
+    chunk: int = 128,
+    k_small: int = 16,
+    m_big: int = 8192,
+    k_big: int = 256,
+    m_mid: int = 0,
+    k_mid: int = 0,
+    grad_sort_bf16: bool = False,
+    grad_sort: Optional[str] = None,
+    grad_capacity: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """Binning and compositing of ``render`` and ``render_projected``,
+    inside the caller's ``render`` span."""
+    width, height = camera.width, camera.height
+    single = camera.position.dim() == 1
+    dev = proj.depths.device
+    if backend == "oracle":
+        with span("render.composite"):
+            out = composite_reference(proj, semantic_ids, width, height)
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    elif backend in ("torch", "cuda"):
+        # bins and the cuda compositor's outputs carry a leading camera
+        # axis (B = 1 for one camera), taken off once below
+        with span("render.bin"):
+            bins = bin_gaussians(proj, width, height, k_small=k_small,
+                                 m_big=m_big, k_big=k_big, m_mid=m_mid,
+                                 k_mid=k_mid)
+        with span("render.composite"):
+            if backend == "torch":
+                out = {k: v[None] for k, v in composite_tiles(
+                    proj, semantic_ids, bins, width, height,
+                    tile_capacity=tile_capacity, chunk=chunk).items()}
+            else:
+                if pair_capacity is None:
+                    pair_capacity = default_pair_capacity(
+                        proj.depths.shape[-1], width, height)
+                out = composite_tiles_cuda(
+                    proj, semantic_ids, bins, width, height,
+                    tile_capacity=tile_capacity,
+                    pair_capacity=pair_capacity,
+                    grad_sort_bf16=grad_sort_bf16, grad_sort=grad_sort,
+                    grad_capacity=grad_capacity)
+        overflow = (bins.overflow + out.pop("tile_overflow")).to(
+            torch.int32)
+        if single:
+            out = {k: v[0] for k, v in out.items()}
+            overflow = overflow[0]
+    else:
+        raise ValueError(f"unknown backend: {backend}")
+
+    # the background per channel from Python numbers: a tensor of them
+    # would be a host-to-device copy, which waits for the card
+    rgb = torch.stack([out["rgb"][..., i] + out["trans"] * float(c)
+                       for i, c in enumerate(bg_color)], -1)
+    depth = out["depth_acc"] + out["trans"] * camera.far
+    grad_chunks = out.pop("grad_chunks", None)
+    return {
+        "rgb": rgb,
+        "depth": depth,
+        "alpha": out["alpha"],
+        "semantic": out["semantic"],
+        "trans": out["trans"],
+        "depth_acc": out["depth_acc"],
+        "rgb_acc": out["rgb"],
+        "overflow": overflow,
+        "grad_chunks": (grad_chunks if grad_chunks is not None
+                        else torch.zeros((), dtype=torch.int32,
+                                         device=dev)),
+    }
+
 
 def render_batch(scene: GaussianScene, cameras: Camera,
                  sequential: bool = False, **kw) -> Dict[str, torch.Tensor]:

@@ -217,7 +217,7 @@ def test_budget_overflow_lands_on_its_camera_alone(room):
 def test_a_batch_past_the_id_limit_renders_in_groups(room, monkeypatch):
     _, ts, _, tcs = room
     n = ts.num_gaussians
-    monkeypatch.setattr(trender, "GID_LIMIT", 2 * n + 1)
+    monkeypatch.setattr(trender, "BATCH_ROWS", 2 * n + 1)
     assert trender.camera_groups(3, n) == [slice(0, 2), slice(2, 3)]
     calls = []
     render = trender.render
@@ -237,7 +237,7 @@ def test_a_batch_past_the_id_limit_renders_in_groups(room, monkeypatch):
                 assert torch.equal(got[k][b], one[k]), (b, k)
         # the compositor refuses a batch whose rows reach the limit
         monkeypatch.setattr(tcu, "GID_LIMIT", 2 * n)
-        with pytest.raises(ValueError, match="2\\^24"):
+        with pytest.raises(ValueError, match="2\\^31 - 1"):
             render(ts, tcam.stack_cameras(tcs[:2]), backend="cuda", **CAP)
     with pytest.raises(ValueError, match="render_batch"):
         render(ts, tcam.stack_cameras(tcs), backend="torch")

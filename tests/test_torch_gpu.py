@@ -915,3 +915,88 @@ def test_projection_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="one CUDA device"):
         projection.project_gaussians_cuda(
             scene, cams[0]._replace(position=cams[0].position.cpu()), 1)
+
+
+def _room_past_2_24(n_total: int = 2**24 + 2**20, n_room: int = 20_000):
+    """A scene of ``n_total`` rows, all parked (far away, transparent) but
+    a 20k-Gaussian room laid at the rows around 2^24, so that the frame's
+    Gaussians carry ids on both sides of it; the room's first row."""
+    from sage3d_tpu_torch.parallel.train import pad_scene_to
+    room = synthetic_room(n_room, seed=5, device="cuda")
+    first = 2**24 - n_room // 4
+    # ``first`` parked rows: a one-row scene's padding, without the row
+    head = pad_scene_to(room._replace(**{
+        k: getattr(room, k)[:1] for k in room._fields}), first + 1)
+    scene = room._replace(**{k: torch.cat([getattr(head, k)[1:],
+                                           getattr(room, k)])
+                             for k in room._fields})
+    return pad_scene_to(scene, n_total), first
+
+
+def test_gaussian_ids_past_2_24_route_on_the_card():
+    """One render and backward of 2^24 + 2^20 rows, the frame's Gaussians
+    at ids on both sides of 2^24: the cuda backend's gradients match the
+    plain compositor's, every gradient on its own Gaussian (the parked rows'
+    zero)."""
+    _need_card("K3's routing past 2^24")
+    scene, first = _room_past_2_24()
+    n = scene.num_gaussians
+    assert n == 2**24 + 2**20 and first < 2**24 < first + 20_000
+    cam = make_camera([0.0, -4.0, 1.2], [0.0, 1.0, -0.1], 160, 128,
+                      device="cuda")
+    bk = trender.budget_kwargs(trender.autotune_all(scene, cam))
+    grads = {}
+    for backend in ("cuda", "torch"):
+        params = {k: getattr(scene, k).clone().requires_grad_()
+                  for k in PARAMS}
+        out = trender.render(scene._replace(**params), cam, backend=backend,
+                             **bk)
+        assert int(out["overflow"]) == 0
+        torch.mean((out["rgb"] - 0.5) ** 2).backward()
+        grads[backend] = {k: params[k].grad for k in PARAMS}
+        del params, out
+    room = slice(first, first + 20_000)
+    for k in PARAMS:
+        ref, got = grads["torch"][k], grads["cuda"][k]
+        assert float(ref[room].abs().amax()) > 0, k
+        hi = ref[2**24:first + 20_000].abs().amax()
+        assert float(hi) > 0, k          # Gaussians past 2^24 are seen
+        err = float((got - ref).abs().max())
+        assert err <= 5e-4 * float(ref.abs().max()), k
+        assert float(got[:first].abs().max()) == 0.0, k
+        assert float(got[first + 20_000:].abs().max()) == 0.0, k
+
+
+def test_splat_layout_on_four_cards_matches_the_parameter_layout():
+    """Three steps of the sharded step's splat layout and of its parameter
+    layout on a (1, 4) NCCL mesh, a card a rank, from one start: the same
+    losses, gradients and parameters, up to the band's rounding of the
+    means and the sums' order; each rank projects its quarter."""
+    import functools
+
+    from sage3d_tpu_torch.parallel import audit
+    from sage3d_tpu_torch.parallel.mesh import spawn_mesh
+    from sage3d_tpu_torch.parallel.train import Optimizer, pad_scene_to
+    from sage3d_tpu_torch.renderer.camera import stack_cameras
+    _need_card("the splat layout over NCCL")
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices: an NCCL mesh of a card a rank")
+    scene, cam, bk = _frame(n=200_000)
+    scene = pad_scene_to(scene, 16)
+    lrs = {"means": 8e-4, "log_scales": 5e-3, "quats": 1e-3,
+           "opacity_logits": 5e-2, "sh": 2.5e-3}
+    targets = torch.full((1, cam.height, cam.width, 3), 0.3, device="cuda")
+    got = spawn_mesh(functools.partial(audit.compare_layouts, n_steps=3,
+                                       backend="cuda", **bk),
+                     (1, 4), scene, stack_cameras([cam]), targets,
+                     Optimizer(group_lrs=lrs), backend="nccl",
+                     timeout_s=600)
+    p, s = got["params"], got["splats"]
+    assert got["rows"]["splats"].tolist() == [scene.num_gaussians / 4] * 4
+    assert got["rows"]["params"].tolist() == [float(scene.num_gaussians)] * 4
+    torch.testing.assert_close(s["losses"], p["losses"], rtol=1e-4, atol=0)
+    for k in PARAMS:
+        scale = float(p["grads"][k].abs().max())
+        err = float((s["grads"][k] - p["grads"][k]).abs().max())
+        assert err <= 1e-3 * scale, (k, err, scale)
+        assert float((s["params"][k] - p["params"][k]).abs().max()) <= 1e-3, k
