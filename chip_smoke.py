@@ -9,8 +9,8 @@ no result line):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the eight CUDA sources of ``sage3d_tpu_torch/csrc``
-     (K1-K7 and the K2 anatomy probe) with nvcc, one process per source, all
-     at once;
+     (K1-K8, K7 and K8 in one, and the K2 anatomy probe) with nvcc, one
+     process per source, all at once;
   2b. K7 (``csrc/project.cu``) against its plain twin on the 1M room at SH
      3 (``k7_phase``): bitwise, one camera and a batch of 8, at 640x480 and
      1920x1080, with and without ``clamp_dims``; its times beside the plain
@@ -18,6 +18,14 @@ no result line):
      are those of phases 5, 9, 10, 11 and 14 (each counted from 0 around
      its runs, as K1's are), which must each launch it; 2b's are not among
      them;
+  2c. K8 (K7's backward, ``csrc/project.cu``) against autograd of the plain
+     chain on the 1M room at SH 3 (``k8_phase``): one camera and a batch of
+     8, at 640x480 and 1920x1080, and one camera at 1152x864 on a 10.1M
+     room (a 40.4M scene's shard), from seeded output gradients, each scene
+     gradient within ``K8_REL`` of its largest entry; K8's time beside the
+     plain chain's backward and the bytes bound, and the projection's
+     forward and backward by both routes. K8's ``launches`` in the
+     ``kernels`` line are phase 5b's, which must launch it once a step;
   3. K1 (``csrc/emit.cu``) against its plain PyTorch version on the live
      slots of the 1080p frame of a 1M-Gaussian scene, fused key (mult > 0)
      and two-key (mult == 0) modes: the pairs, sorted by key, must be equal;
@@ -47,7 +55,8 @@ no result line):
      room towards the room's own render, from the room with seeded noise on
      its colours and opacities (geometry as is), with
      ``autotune_all(pair_margin=1.5, grad_margin=1.5)`` budgets;
-     every step must launch K1-K4 (counters set to 0 before each step), the
+     every step must launch K1-K4 and K7 (counters set to 0 before each
+     step) and K8 once, the
      loss must stay finite and fall, and renders of the first and last
      parameters must not overflow. Step time (CUDA events), Mpix/s, and the
      device's busy time, idle share and top kernels per step (torch.profiler);
@@ -282,6 +291,14 @@ K7_BYTES_PER_GAUSSIAN = 236
 K7_BYTES_PER_ROW = 49
 K7_SIZES = ((640, 480), (1920, 1080))   # the nav cells' and the render cell's
 K7_BATCH = 8                            # their camera batch
+# K8 reads a Gaussian's 236 bytes and writes its 236 bytes of gradient, and
+# reads 40 bytes of output gradient a (camera, Gaussian) row (means2d 8,
+# conics 12, depths 4, colours 12, opacity 4).
+K8_BYTES_PER_GAUSSIAN = 472
+K8_BYTES_PER_ROW = 40
+K8_REL = 1e-4           # K8's gradients over each group's max |autograd of
+                        # the plain chain|: f32 sums in another order
+K8_SHARD = 10_100_000   # a 40.4M scene's rows on each of four ranks
 FP32_OPS_PER_S = 67e12
 # FP32 operations per unit of work, counted from the kernels' source:
 # K1, one live slot: the reciprocal walk with its fixup, the tile rect, four
@@ -982,6 +999,109 @@ def k7_phase(card: str) -> dict:
                   f"{bound:.4f} ms (bytes), share {bound / b2b:.3f}",
                   flush=True)
     return k7
+
+
+def k8_phase(card: str) -> dict:
+    """Phase 2c: K8 (K7's backward, ``csrc/project.cu``) against autograd of
+    the plain chain on the 1M room at SH 3, at 640x480 and 1920x1080, for
+    one camera (stacked, as the train step passes it) and a batch of
+    ``K7_BATCH``, and on a ``K8_SHARD``-Gaussian room (a 40.4M scene's
+    shard on one of four ranks) at 1152x864 for one camera, from seeded
+    output gradients of the five float fields: each scene gradient within
+    ``K8_REL`` of its largest entry. Then K8's time, the plain chain's
+    backward (CUDA events around autograd's backward of a graph built
+    before them), and the projection's forward and backward by both
+    routes, beside the bytes bound. Returns the ``kernels`` line's K8
+    numbers by shape (launches aside)."""
+    import torch
+    from sage3d_tpu_torch.ops import projection
+    from sage3d_tpu_torch.renderer.camera import agent_camera, stack_cameras
+    from sage3d_tpu_torch.renderer.scene import synthetic_room
+    fields = ("means2d", "conics", "depths", "colors", "opacities")
+
+    def plain(s, c):
+        return projection.project_gaussians_plain(s, c, 3)
+
+    def one_shape(room, cam, key, b_cams, seed):
+        n = room.num_gaussians
+        leaves = [getattr(room, k).clone().requires_grad_()
+                  for k in TRAINABLE]
+        scene = room._replace(**dict(zip(TRAINABLE, leaves)))
+
+        def grads_of(project, ups):
+            proj = project(scene, cam)
+            return torch.autograd.grad([getattr(proj, f) for f in fields],
+                                       leaves, ups)
+
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        with torch.no_grad():
+            shapes = [getattr(projection.project_gaussians(room, cam),
+                              f).shape for f in fields]
+        ups = [torch.randn(sh, generator=g, device="cuda") for sh in shapes]
+        before = projection.project_gaussians_backward_cuda.launches
+        got = grads_of(projection.project_gaussians, ups)
+        torch.cuda.synchronize()
+        once = projection.project_gaussians_backward_cuda.launches == before + 1
+        want = grads_of(plain, ups)
+        rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(got, want))
+        del got, want
+        check(once and rel <= K8_REL,
+              f"2c K8 {key}: launched once, every scene gradient within "
+              f"{K8_REL} of autograd of the plain chain ({rel:.3e})")
+        ms = cuda_ms(lambda: projection.project_gaussians_backward_cuda(
+            room, cam, 3, None, ups), reps=10, warmup=2)
+        b2b, host = back_to_back_ms(
+            lambda: projection.project_gaussians_backward_cuda(
+                room, cam, 3, None, ups))
+        plain_bwd = []
+        for _ in range(4):
+            proj = plain(scene, cam)
+            outs = [getattr(proj, f) for f in fields]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            torch.autograd.grad(outs, leaves, ups)
+            b.record()
+            b.synchronize()
+            plain_bwd.append(a.elapsed_time(b))
+            del proj, outs
+        plain_bwd_ms = statistics.median(plain_bwd[1:])
+        fb_ms = cuda_ms(lambda: grads_of(projection.project_gaussians, ups),
+                        reps=10, warmup=2)
+        plain_fb_ms = cuda_ms(lambda: grads_of(plain, ups), reps=3, warmup=1)
+        bound = (n * K8_BYTES_PER_GAUSSIAN + b_cams * n * K8_BYTES_PER_ROW
+                 ) / HBM_BYTES_PER_S * 1e3
+        print(f"2c K8 {key} SH 3, {n} Gaussians {card}: {ms:.4f} ms (events "
+              f"around one call), {b2b:.4f} ms back to back, host "
+              f"{host:.4f} ms; the plain chain's backward {plain_bwd_ms:.3f} "
+              f"ms; bound {bound:.4f} ms (bytes), share {bound / b2b:.3f}; "
+              f"forward and backward K7 + K8 {fb_ms:.3f} ms, the plain chain "
+              f"{plain_fb_ms:.3f} ms; max error / max {rel:.3e}", flush=True)
+        return {"ms": ms, "back_to_back_ms": b2b, "host_ms": host,
+                "plain_ms": plain_bwd_ms, "bound_ms": bound,
+                "max_rel_err": rel, "fwd_bwd_ms": fb_ms,
+                "plain_fwd_bwd_ms": plain_fb_ms}
+
+    k8 = {}
+    room = synthetic_room(FRAME_A[0], seed=0, sh_degree=3, device="cuda")
+    for width, height in K7_SIZES:
+        cams = [agent_camera((0.4 * i - 1.4, -3.2 + 0.3 * i), 0.3 + 0.7 * i,
+                             width=width, height=height, device="cuda")
+                for i in range(K7_BATCH)]
+        for b_cams in (1, K7_BATCH):
+            key = f"{width}x{height} B={b_cams}"
+            k8[key] = one_shape(room, stack_cameras(cams[:b_cams]), key,
+                                b_cams, b_cams)
+    del room
+    shard = synthetic_room(K8_SHARD, seed=0, sh_degree=3, device="cuda")
+    cam = stack_cameras([agent_camera((-1.4, -3.2), 0.3, width=1152,
+                                      height=864, device="cuda")])
+    k8["1152x864 B=1 shard"] = one_shape(shard, cam, "1152x864 B=1 shard", 1,
+                                         2)
+    del shard
+    torch.cuda.empty_cache()
+    return k8
 
 
 def navigation(room, card: str) -> list:
@@ -3421,10 +3541,12 @@ def main() -> int:
     print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
     check(len(secs) == 8 and all(_build._target(k).exists() for k in secs),
-          "build: the eight CUDA sources (K1-K7 and the K2 probe) built")
+          "build: the eight CUDA sources (K1-K8 and the K2 probe) built")
 
     # 2b. K7 against its plain twin, and its time ---------------------------
     k7 = k7_phase(card)
+    # 2c. K8 against autograd of the plain chain, and its time ----------------
+    k8 = k8_phase(card)
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -3662,13 +3784,15 @@ def main() -> int:
     counters = {"emit": binning.emit_tile_pairs,
                 "composite_fwd": cc.composite_fwd,
                 "composite_bwd": cc.composite_bwd,
-                "segreduce": segreduce.segment_reduce_sorted}
+                "segreduce": segreduce.segment_reduce_sorted,
+                "project": projection.project_gaussians_cuda,
+                "project_bwd": projection.project_gaussians_backward_cuda}
     with torch.no_grad():
         ovf_first = int(render(start_scene, cam_a, backend="cuda",
                                **bk_t)["overflow"])
     losses, step_ms = [], []
     launches_train = {k: 0 for k in counters}
-    every_step = True
+    every_step = k8_once = True
     for i in range(TRAIN_STEPS):
         for fn in counters.values():
             fn.launches = 0
@@ -3681,6 +3805,7 @@ def main() -> int:
         losses.append(float(loss))
         n = {k: fn.launches for k, fn in counters.items()}
         every_step &= all(v > 0 for v in n.values())
+        k8_once &= n["project_bwd"] == 1
         for k in counters:
             launches_train[k] += n[k]
         print(f"train step {i + 1}: loss {losses[-1]:.6e}, {step_ms[-1]:.3f} ms,"
@@ -3695,7 +3820,9 @@ def main() -> int:
           f"{TRAIN_STEPS - 3} after 3 warm-ups = {mpix:.2f} Mpix/s; loss "
           f"{losses[0]:.6e} -> {losses[-1]:.6e}; overflow first/last "
           f"{ovf_first}/{ovf_last}", flush=True)
-    check(every_step, "every training step launched K1, K2, K3 and K4")
+    check(every_step, "every training step launched K1, K2, K3, K4 and K7")
+    check(k8_once, "every training step launched K8 once (the projection's "
+          "backward, no plain chain under autograd)")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           "training loss finite and falling")
     check(ovf_first == 0 and ovf_last == 0,
@@ -4332,6 +4459,15 @@ def main() -> int:
          **{k: v for k, v in k7[f"640x480 B={K7_BATCH}"].items()},
          "bound_by": "bytes", "library_ms": None,
          "by_shape": k7},
+        {"name": "K8 project_gaussians_backward", "route": "cuda",
+         "source": "sage3d_tpu_torch/csrc/project.cu",
+         "replaces": "none (the JAX package takes this gradient from XLA's "
+                     "autodiff of sage3d_tpu/ops/projection.py:75)",
+         "launches": launches_train["project_bwd"],
+         "max_abs_err": None,
+         **{k: v for k, v in k8["1920x1080 B=1"].items()},
+         "bound_by": "bytes", "library_ms": None,
+         "by_shape": k8},
         *batched_entries,
     ]
     check(all(k["launches"] > 0 for k in kernels),

@@ -1,13 +1,16 @@
-// K7: the gradient-free EWA projection and SH colour of project_gaussians,
-// hand-written for Hopper (sm_90a).
+// K7: the EWA projection and SH colour of project_gaussians, and K8, its
+// backward, hand-written for Hopper (sm_90a).
 //
-// Replaces no TPU kernel: the JAX package computes the projection in plain
-// XLA (sage3d_tpu/ops/projection.py::project_gaussians, ops/sh.py), and the
-// port's plain version (ops/projection.py::project_gaussians_plain) is a
-// chain of ~300 elementwise PyTorch launches, each reading and writing whole
-// (B, N) tensors. K7 computes every field project_gaussians returns in one
-// launch, for one camera or a stacked batch of B. It runs only where no
-// gradient is wanted; under autograd the plain chain runs.
+// Replace no TPU kernel: the JAX package computes the projection in plain
+// XLA (sage3d_tpu/ops/projection.py::project_gaussians, ops/sh.py) and takes
+// its gradient from XLA's autodiff, and the port's plain version
+// (ops/projection.py::project_gaussians_plain) is a chain of ~300
+// elementwise PyTorch launches forward and about twice as many under
+// autograd backward, each reading and writing whole (B, N) tensors. K7
+// computes every field project_gaussians returns in one launch, for one
+// camera or a stacked batch of B, wherever the scene lies on the card; under
+// autograd it is the forward of ops/projection.py::_ProjectK7, whose
+// backward is K8 (below).
 //
 // Numbers: each field is the plain chain's, channel by channel and in its
 // order, each operation one f32 rounding as PyTorch's CUDA kernels round it
@@ -129,30 +132,31 @@ struct Cam {
   float lim_x, lim_y;
 };
 
+// Camera b's constants and the frustum clamp it derives.
+__device__ __forceinline__ void load_cam(const Cameras& cs, int b, Cam& c) {
+  const float* r = cs.cam_to_world + 9 * b;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) c.w[3 * i + j] = r[3 * j + i];
+    c.pos[i] = cs.position[3 * b + i];
+  }
+  c.fx = cs.fx[b];
+  c.fy = cs.fy[b];
+  c.cx = cs.cx[b];
+  c.cy = cs.cy[b];
+  // 1.3 * (0.5 * clamp_w / fx): reciprocal(fx) * half_w, then * 1.3
+  c.lim_x = (1.0f / c.fx) * cs.half_w * kFrustum;
+  c.lim_y = (1.0f / c.fy) * cs.half_h * kFrustum;
+}
+
 template <int DEG>
 __global__ void __launch_bounds__(kThreads)
 project_kernel(Scene s, Cameras cs, Out o) {
   __shared__ Cam cams[kCams];
   const int b0 = blockIdx.y * kCams;
   const int nb = min(kCams, cs.b - b0);
-  if ((int)threadIdx.x < nb) {
-    const int b = b0 + threadIdx.x;
-    Cam& c = cams[threadIdx.x];
-    const float* r = cs.cam_to_world + 9 * b;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) c.w[3 * i + j] = r[3 * j + i];
-      c.pos[i] = cs.position[3 * b + i];
-    }
-    c.fx = cs.fx[b];
-    c.fy = cs.fy[b];
-    c.cx = cs.cx[b];
-    c.cy = cs.cy[b];
-    // 1.3 * (0.5 * clamp_w / fx): reciprocal(fx) * half_w, then * 1.3
-    c.lim_x = (1.0f / c.fx) * cs.half_w * kFrustum;
-    c.lim_y = (1.0f / c.fy) * cs.half_h * kFrustum;
-  }
+  if ((int)threadIdx.x < nb) load_cam(cs, b0 + threadIdx.x, cams[threadIdx.x]);
   __syncthreads();
   // 64-bit, so that 4 * g and 3 * g stay exact up to n = 2^31 - 1
   const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -316,6 +320,407 @@ void launch(const Scene& s, const Cameras& cs, const Out& o, cudaStream_t st) {
   project_kernel<DEG><<<grid, kThreads, 0, st>>>(s, cs, o);
 }
 
+// -- K8: the backward --------------------------------------------------------
+//
+// The gradients of means, log-scales, quaternion, opacity logit and SH from
+// those of K7's five float outputs (means2d, conics, depths, colours,
+// opacities), summed over the B cameras: the plain chain's reverse-mode
+// arithmetic as autograd defines it (twin:
+// ops/projection.py::project_gaussians_backward_plain). The forward's
+// intermediates are recomputed from the inputs in K7's order, so that each
+// decision the gradient takes (the tz guard, the frustum clamp, det <= 0,
+// the colour's clamp at 0) is the forward's; nothing is saved between the
+// two. clamp passes where its input is >= the bound, maximum/minimum split
+// a tie in half, ceil and the comparisons (radii, extents, visible, the
+// opacity cut) give nothing.
+//
+// What bounds it on an H100: bytes. A Gaussian's 236 bytes at SH 3 are read
+// and its 236 bytes of gradient written once, and 40 bytes of output
+// gradient read a (camera, Gaussian) row: 0.153 ms for one camera at 1M
+// Gaussians, 1.55 ms at 10.1M, at 3.35 TB/s. Design: one thread a Gaussian,
+// 128 a block, its fields in registers once; a loop over all B cameras
+// (kCams a time in shared memory) sums every gradient in registers, so each
+// Gaussian's gradient is written once, with no atomics and in a fixed
+// order; the output gradients are read through their strides (the views
+// autograd hands over, no copies); the SH gradient is written as 16-byte
+// stores where the rows allow, zeros above the degree.
+
+struct Grad {           // the gradient of one output field; NULL for zero
+  const float* p;
+  long long sb, sn;     // camera and Gaussian strides, in floats
+};
+
+struct Grads {
+  Grad means2d, conics, depths, colors, opacities;
+};
+
+struct SceneGrads {
+  float* means;         // (N, 3)
+  float* log_scales;    // (N, 3)
+  float* quats;         // (N, 4)
+  float* logits;        // (N,)
+  float* sh;            // (N, K, 3)
+};
+
+// The share of the gradient of minimum(maximum(x, -lim), lim) that reaches
+// x: autograd's rule for torch.maximum / torch.minimum, a tie split in half.
+__device__ __forceinline__ float pass_max_min(float x, float lim) {
+  const float m = maximum(x, -lim);
+  const float lo = x == -lim ? 0.5f : (x < -lim ? 0.0f : 1.0f);
+  const float hi = m == lim ? 0.5f : (m > lim ? 0.0f : 1.0f);
+  return lo * hi;
+}
+
+// One SH coefficient's part of the colour gradient: coefficient k's basis
+// value f and its derivative (fx, fy, fz) along the unit view direction.
+template <int K>
+__device__ __forceinline__ void sh_term(float f, float fx, float fy, float fz,
+                                        const float* gr, const float* sh,
+                                        float* g_sh, float* g_dir) {
+  float gf = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    g_sh[3 * K + ch] += f * gr[ch];
+    gf += gr[ch] * sh[3 * K + ch];
+  }
+  g_dir[0] += gf * fx;
+  g_dir[1] += gf * fy;
+  g_dir[2] += gf * fz;
+}
+
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
+project_bwd_kernel(Scene s, Cameras cs, Grads gi, SceneGrads go) {
+  __shared__ Cam cams[kCams];
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  // a thread past the end works on the last row and writes nothing, so
+  // that every thread reaches the block's barriers
+  const long long gl = g < s.n ? g : s.n - 1;
+
+  // -- the Gaussian, once (K7's arithmetic) --------------------------------
+  const float mx = s.means[3 * gl], my = s.means[3 * gl + 1],
+              mz = s.means[3 * gl + 2];
+  const float Sk[3] = {expf(s.log_scales[3 * gl]),
+                       expf(s.log_scales[3 * gl + 1]),
+                       expf(s.log_scales[3 * gl + 2])};
+  const float qw = s.quats[4 * gl], qx = s.quats[4 * gl + 1],
+              qy = s.quats[4 * gl + 2], qz = s.quats[4 * gl + 3];
+  const float nq = sqrtf((qw * qw + qy * qy) + (qx * qx + qz * qz));
+  const float den = nq + kTiny;
+  const float w = qw / den, x = qx / den, y = qy / den, z = qz / den;
+  const float R[3][3] = {
+      {1.0f - 2.0f * (y * y + z * z), 2.0f * (x * y - w * z),
+       2.0f * (x * z + w * y)},
+      {2.0f * (x * y + w * z), 1.0f - 2.0f * (x * x + z * z),
+       2.0f * (y * z - w * x)},
+      {2.0f * (x * z - w * y), 2.0f * (y * z + w * x),
+       1.0f - 2.0f * (x * x + y * y)}};
+
+  constexpr int NF = (DEG + 1) * (DEG + 1) * 3;
+  float sh[NF];
+  const float* row = s.sh + gl * s.sh_row;
+  if (s.sh_vec) {
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+    for (int v = 0; v < (NF + 3) / 4; ++v) {
+      const float4 q = __ldg(row4 + v);
+      const float e[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * v + i < NF) sh[4 * v + i] = e[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NF; ++i) sh[i] = __ldg(row + i);
+  }
+
+  // the parameters' gradients, summed over the cameras in registers
+  float g_m[3] = {0.0f, 0.0f, 0.0f}, g_S[3] = {0.0f, 0.0f, 0.0f};
+  float g_R[3][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f},
+                     {0.0f, 0.0f, 0.0f}};
+  float g_op = 0.0f;
+  float g_sh[NF];
+#pragma unroll
+  for (int i = 0; i < NF; ++i) g_sh[i] = 0.0f;
+
+  for (int b0 = 0; b0 < cs.b; b0 += kCams) {
+    const int nb = min(kCams, cs.b - b0);
+    __syncthreads();   // the last chunk's cameras are read
+    if ((int)threadIdx.x < nb)
+      load_cam(cs, b0 + threadIdx.x, cams[threadIdx.x]);
+    __syncthreads();
+    for (int ci = 0; ci < nb; ++ci) {
+      const Cam& C = cams[ci];
+      const long long b = b0 + ci;
+
+      // -- the forward's intermediates, as K7 computes them ----------------
+      const float d0 = mx - C.pos[0], d1 = my - C.pos[1], d2 = mz - C.pos[2];
+      const float t0 = C.w[0] * d0 + C.w[1] * d1 + C.w[2] * d2;
+      const float t1 = C.w[3] * d0 + C.w[4] * d1 + C.w[5] * d2;
+      const float tz = C.w[6] * d0 + C.w[7] * d1 + C.w[8] * d2;
+      const bool guarded = fabsf(tz) < kZeroZ;
+      const float tz_safe = guarded ? kZeroZ : tz;
+      const float inv_z = 1.0f / tz_safe;
+      const float rx = t0 * inv_z, ry = t1 * inv_z;
+      const float clx = minimum(maximum(rx, -C.lim_x), C.lim_x);
+      const float cly = minimum(maximum(ry, -C.lim_y), C.lim_y);
+      const float txz = clx * tz_safe, tyz = cly * tz_safe;
+      const float fx_z = C.fx * inv_z, fy_z = C.fy * inv_z;
+      const float jx2 = -C.fx * txz * inv_z * inv_z;
+      const float jy2 = -C.fy * tyz * inv_z * inv_z;
+      float jw0[3], jw1[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        jw0[j] = fx_z * C.w[j] + jx2 * C.w[6 + j];
+        jw1[j] = fy_z * C.w[3 + j] + jy2 * C.w[6 + j];
+      }
+      float p0[3], p1[3], u0[3], u1[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        p0[k] = jw0[0] * R[0][k] + jw0[1] * R[1][k] + jw0[2] * R[2][k];
+        p1[k] = jw1[0] * R[0][k] + jw1[1] * R[1][k] + jw1[2] * R[2][k];
+        u0[k] = Sk[k] * p0[k];
+        u1[k] = Sk[k] * p1[k];
+      }
+      const float a = u0[0] * u0[0] + u0[1] * u0[1] + u0[2] * u0[2] + kDilation;
+      const float bb = u0[0] * u1[0] + u0[1] * u1[1] + u0[2] * u1[2];
+      const float c = u1[0] * u1[0] + u1[1] * u1[1] + u1[2] * u1[2] + kDilation;
+      const float det = a * c - bb * bb;
+      const float inv_det = 1.0f / (det <= 0.0f ? 1.0f : det);
+
+      // -- the output gradients of this camera's row ------------------------
+      float gu = 0.0f, gv = 0.0f, gca = 0.0f, gcb = 0.0f, gcc = 0.0f;
+      float gz = 0.0f, gc[3] = {0.0f, 0.0f, 0.0f};
+      if (gi.means2d.p) {
+        const float* q = gi.means2d.p + b * gi.means2d.sb + gl * gi.means2d.sn;
+        gu = q[0];
+        gv = q[1];
+      }
+      if (gi.conics.p) {
+        const float* q = gi.conics.p + b * gi.conics.sb + gl * gi.conics.sn;
+        gca = q[0];
+        gcb = q[1];
+        gcc = q[2];
+      }
+      if (gi.depths.p) gz = gi.depths.p[b * gi.depths.sb + gl * gi.depths.sn];
+      if (gi.colors.p) {
+        const float* q = gi.colors.p + b * gi.colors.sb + gl * gi.colors.sn;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) gc[ch] = q[ch];
+      }
+      if (gi.opacities.p)
+        g_op += gi.opacities.p[b * gi.opacities.sb + gl * gi.opacities.sn];
+
+      // -- conics -> the 2D covariance -> the EWA factors -------------------
+      float g_a = gcc * inv_det, g_b = -gcb * inv_det, g_c = gca * inv_det;
+      const float g_inv = gca * c - gcb * bb + gcc * a;
+      // det_safe = where(det <= 0, 1, det): the gradient reaches det only
+      // where the branch took it
+      const float g_det = det <= 0.0f ? 0.0f : -g_inv * inv_det * inv_det;
+      g_a += g_det * c;
+      g_c += g_det * a;
+      g_b -= 2.0f * bb * g_det;
+      float g_p0[3], g_p1[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float gu0 = 2.0f * u0[k] * g_a + u1[k] * g_b;
+        const float gu1 = 2.0f * u1[k] * g_c + u0[k] * g_b;
+        g_S[k] += gu0 * p0[k] + gu1 * p1[k];
+        g_p0[k] = gu0 * Sk[k];
+        g_p1[k] = gu1 * Sk[k];
+      }
+      float g_jw0[3], g_jw1[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          g_R[i][k] += g_p0[k] * jw0[i] + g_p1[k] * jw1[i];
+        g_jw0[i] = g_p0[0] * R[i][0] + g_p0[1] * R[i][1] + g_p0[2] * R[i][2];
+        g_jw1[i] = g_p1[0] * R[i][0] + g_p1[1] * R[i][1] + g_p1[2] * R[i][2];
+      }
+
+      // -- the Jacobian and the mean -> camera space ------------------------
+      const float g_fx_z =
+          g_jw0[0] * C.w[0] + g_jw0[1] * C.w[1] + g_jw0[2] * C.w[2];
+      const float g_jx2 =
+          g_jw0[0] * C.w[6] + g_jw0[1] * C.w[7] + g_jw0[2] * C.w[8];
+      const float g_fy_z =
+          g_jw1[0] * C.w[3] + g_jw1[1] * C.w[4] + g_jw1[2] * C.w[5];
+      const float g_jy2 =
+          g_jw1[0] * C.w[6] + g_jw1[1] * C.w[7] + g_jw1[2] * C.w[8];
+      const float iz2 = inv_z * inv_z;
+      const float g_txz = -C.fx * g_jx2 * iz2, g_tyz = -C.fy * g_jy2 * iz2;
+      const float g_rx = g_txz * tz_safe * pass_max_min(rx, C.lim_x);
+      const float g_ry = g_tyz * tz_safe * pass_max_min(ry, C.lim_y);
+      const float g_iz =
+          g_fx_z * C.fx + g_fy_z * C.fy
+          - 2.0f * inv_z * (g_jx2 * C.fx * txz + g_jy2 * C.fy * tyz)
+          + gu * C.fx * t0 + gv * C.fy * t1 + g_rx * t0 + g_ry * t1;
+      const float g_t0 = (gu * C.fx + g_rx) * inv_z;
+      const float g_t1 = (gv * C.fy + g_ry) * inv_z;
+      const float g_tzs = g_txz * clx + g_tyz * cly - g_iz * iz2;
+      const float g_tz = gz + (guarded ? 0.0f : g_tzs);
+      float g_d[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        g_d[j] = C.w[j] * g_t0 + C.w[3 + j] * g_t1 + C.w[6 + j] * g_tz;
+
+      // -- SH colour -> coefficients and view direction ---------------------
+      if constexpr (DEG == 0) {
+        // one colour for all cameras: clamp(C0 sh + 0.5, min=0) passes
+        // where its input is >= 0
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          g_sh[ch] += kC0 * (kC0 * sh[ch] + 0.5f >= 0.0f ? gc[ch] : 0.0f);
+      } else {
+        const float nrm = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
+        const float dn = nrm + kTiny;
+        const float dx = d0 / dn, dy = d1 / dn, dz = d2 / dn;
+        const float c1y = kC1 * dy, c1z = kC1 * dz, c1x = kC1 * dx;
+        const float xx = dx * dx, yy = dy * dy, zz = dz * dz;
+        const float xy = dx * dy, yz = dy * dz, xz = dx * dz;
+        float b2[5] = {0, 0, 0, 0, 0}, b3[7] = {0, 0, 0, 0, 0, 0, 0};
+        if constexpr (DEG >= 2) {
+          b2[0] = kC20 * xy;
+          b2[1] = kC21 * yz;
+          b2[2] = kC22 * (2.0f * zz - xx - yy);
+          b2[3] = kC23 * xz;
+          b2[4] = kC24 * (xx - yy);
+        }
+        if constexpr (DEG >= 3) {
+          b3[0] = kC30 * dy * (3.0f * xx - yy);
+          b3[1] = kC31 * xy * dz;
+          b3[2] = kC32 * dy * (4.0f * zz - xx - yy);
+          b3[3] = kC33 * dz * (2.0f * zz - 3.0f * xx - 3.0f * yy);
+          b3[4] = kC34 * dx * (4.0f * zz - xx - yy);
+          b3[5] = kC35 * dz * (xx - yy);
+          b3[6] = kC36 * dx * (xx - 3.0f * yy);
+        }
+        // the colour as K7 sums it, for the clamp's decision
+        float gr[3];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          float res = kC0 * sh[ch];
+          res = res - c1y * sh[3 + ch] + c1z * sh[6 + ch] - c1x * sh[9 + ch];
+          if constexpr (DEG >= 2) {
+#pragma unroll
+            for (int k = 0; k < 5; ++k)
+              res = res + b2[k] * sh[3 * (4 + k) + ch];
+          }
+          if constexpr (DEG >= 3) {
+#pragma unroll
+            for (int k = 0; k < 7; ++k)
+              res = res + b3[k] * sh[3 * (9 + k) + ch];
+          }
+          gr[ch] = res + 0.5f >= 0.0f ? gc[ch] : 0.0f;
+        }
+        float g_dir[3] = {0.0f, 0.0f, 0.0f};
+        sh_term<0>(kC0, 0.0f, 0.0f, 0.0f, gr, sh, g_sh, g_dir);
+        sh_term<1>(-c1y, 0.0f, -kC1, 0.0f, gr, sh, g_sh, g_dir);
+        sh_term<2>(c1z, 0.0f, 0.0f, kC1, gr, sh, g_sh, g_dir);
+        sh_term<3>(-c1x, -kC1, 0.0f, 0.0f, gr, sh, g_sh, g_dir);
+        if constexpr (DEG >= 2) {
+          sh_term<4>(b2[0], kC20 * dy, kC20 * dx, 0.0f, gr, sh, g_sh, g_dir);
+          sh_term<5>(b2[1], 0.0f, kC21 * dz, kC21 * dy, gr, sh, g_sh, g_dir);
+          sh_term<6>(b2[2], -2.0f * kC22 * dx, -2.0f * kC22 * dy,
+                     4.0f * kC22 * dz, gr, sh, g_sh, g_dir);
+          sh_term<7>(b2[3], kC23 * dz, 0.0f, kC23 * dx, gr, sh, g_sh, g_dir);
+          sh_term<8>(b2[4], 2.0f * kC24 * dx, -2.0f * kC24 * dy, 0.0f, gr, sh,
+                     g_sh, g_dir);
+        }
+        if constexpr (DEG >= 3) {
+          sh_term<9>(b3[0], 6.0f * kC30 * xy, 3.0f * kC30 * (xx - yy), 0.0f,
+                     gr, sh, g_sh, g_dir);
+          sh_term<10>(b3[1], kC31 * yz, kC31 * xz, kC31 * xy, gr, sh, g_sh,
+                      g_dir);
+          sh_term<11>(b3[2], -2.0f * kC32 * xy,
+                      kC32 * (4.0f * zz - xx - 3.0f * yy), 8.0f * kC32 * yz,
+                      gr, sh, g_sh, g_dir);
+          sh_term<12>(b3[3], -6.0f * kC33 * xz, -6.0f * kC33 * yz,
+                      kC33 * (6.0f * zz - 3.0f * xx - 3.0f * yy), gr, sh,
+                      g_sh, g_dir);
+          sh_term<13>(b3[4], kC34 * (4.0f * zz - 3.0f * xx - yy),
+                      -2.0f * kC34 * xy, 8.0f * kC34 * xz, gr, sh, g_sh,
+                      g_dir);
+          sh_term<14>(b3[5], 2.0f * kC35 * xz, -2.0f * kC35 * yz,
+                      kC35 * (xx - yy), gr, sh, g_sh, g_dir);
+          sh_term<15>(b3[6], 3.0f * kC36 * (xx - yy), -6.0f * kC36 * xy, 0.0f,
+                      gr, sh, g_sh, g_dir);
+        }
+        // dirs = d / (|d| + 1e-12): the direction's gradient back to d
+        const float g_nrm = -(g_dir[0] * d0 + g_dir[1] * d1 + g_dir[2] * d2)
+                            / (dn * dn);
+        g_d[0] += g_dir[0] / dn + g_nrm * d0 / nrm;
+        g_d[1] += g_dir[1] / dn + g_nrm * d1 / nrm;
+        g_d[2] += g_dir[2] / dn + g_nrm * d2 / nrm;
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) g_m[j] += g_d[j];
+    }
+  }
+  if (g >= s.n) return;
+
+  // -- the per-Gaussian parameters, written once ----------------------------
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    go.means[3 * g + j] = g_m[j];
+    go.log_scales[3 * g + j] = g_S[j] * Sk[j];   // exp: grad * result
+  }
+  // R of the normalised quaternion -> the normalised quaternion
+  const float gw = 2.0f * (-z * g_R[0][1] + y * g_R[0][2] + z * g_R[1][0]
+                           - x * g_R[1][2] - y * g_R[2][0] + x * g_R[2][1]);
+  const float gx = 2.0f * (y * g_R[0][1] + z * g_R[0][2] + y * g_R[1][0]
+                           - 2.0f * x * g_R[1][1] - w * g_R[1][2]
+                           + z * g_R[2][0] + w * g_R[2][1]
+                           - 2.0f * x * g_R[2][2]);
+  const float gy = 2.0f * (-2.0f * y * g_R[0][0] + x * g_R[0][1]
+                           + w * g_R[0][2] + x * g_R[1][0] + z * g_R[1][2]
+                           - w * g_R[2][0] + z * g_R[2][1]
+                           - 2.0f * y * g_R[2][2]);
+  const float gz = 2.0f * (-2.0f * z * g_R[0][0] - w * g_R[0][1]
+                           + x * g_R[0][2] + w * g_R[1][0]
+                           - 2.0f * z * g_R[1][1] + y * g_R[1][2]
+                           + x * g_R[2][0] + y * g_R[2][1]);
+  // q / (|q| + 1e-12): the norm's gradient is masked to 0 where |q| = 0,
+  // as torch.linalg.norm's backward masks it
+  const float dot = gw * qw + gx * qx + gy * qy + gz * qz;
+  const float k = nq == 0.0f ? 0.0f : dot / (den * den * nq);
+  // (N, 4) rows of a new tensor: 16-byte aligned
+  reinterpret_cast<float4*>(go.quats)[g] =
+      make_float4(gw / den - k * qw, gx / den - k * qx, gy / den - k * qy,
+                  gz / den - k * qz);
+  // sigmoid: grad * (1 - y) * y
+  const float op = sigmoid(s.logits[g]);
+  go.logits[g] = g_op * (1.0f - op) * op;
+
+  // the SH rows: the degree's coefficients, zeros above it
+  float* out = go.sh + g * s.sh_row;
+  if (s.sh_vec) {
+    float4* out4 = reinterpret_cast<float4*>(out);
+#pragma unroll
+    for (int v = 0; v < (NF + 3) / 4; ++v) {
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        e[i] = 4 * v + i < NF ? g_sh[4 * v + i] : 0.0f;
+      out4[v] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+    for (int v = (NF + 3) / 4; v < s.sh_row / 4; ++v)
+      out4[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NF; ++i) out[i] = g_sh[i];
+    for (int i = NF; i < s.sh_row; ++i) out[i] = 0.0f;
+  }
+}
+
+template <int DEG>
+void launch_bwd(const Scene& s, const Cameras& cs, const Grads& gi,
+                const SceneGrads& go, cudaStream_t st) {
+  const unsigned blocks = (unsigned)((s.n + kThreads - 1) / kThreads);
+  project_bwd_kernel<DEG><<<blocks, kThreads, 0, st>>>(s, cs, gi, go);
+}
+
 }  // namespace
 
 // K7 over n Gaussians and b cameras at SH degree 0-3 (the wrapper checks
@@ -348,6 +753,50 @@ extern "C" int sage3d_project(
     case 1: launch<1>(s, cs, o, st); break;
     case 2: launch<2>(s, cs, o, st); break;
     default: launch<3>(s, cs, o, st); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K8 over n Gaussians and b cameras at SH degree 0-3: the scene's and the
+// cameras' arguments as K7 takes them, then each output gradient's pointer
+// (NULL for zero) and strides, then the five parameter gradients (the
+// wrapper checks shapes, types and contiguity). Returns the cudaError_t of
+// the launch.
+extern "C" int sage3d_project_bwd(
+    const void* means, const void* log_scales, const void* quats,
+    const void* logits, const void* sh, int n, int sh_row, int sh_vec,
+    int degree, const void* position, const void* cam_to_world,
+    const void* fx, const void* fy, const void* cx, const void* cy, int b,
+    float half_w, float half_h, float width, float height, float near_,
+    float far_, const void* g_means2d, long long sb_means2d,
+    long long sn_means2d, const void* g_conics, long long sb_conics,
+    long long sn_conics, const void* g_depths, long long sb_depths,
+    long long sn_depths, const void* g_colors, long long sb_colors,
+    long long sn_colors, const void* g_opacities, long long sb_opacities,
+    long long sn_opacities, void* d_means, void* d_log_scales, void* d_quats,
+    void* d_logits, void* d_sh, void* stream) {
+  if (n <= 0 || b <= 0) return (int)cudaSuccess;
+  if (degree < 0 || degree > 3) return (int)cudaErrorInvalidValue;
+  const Scene s{(const float*)means, (const float*)log_scales,
+                (const float*)quats, (const float*)logits, (const float*)sh,
+                n, sh_row, sh_vec};
+  const Cameras cs{(const float*)position, (const float*)cam_to_world,
+                   (const float*)fx, (const float*)fy, (const float*)cx,
+                   (const float*)cy, b, half_w, half_h, width, height, near_,
+                   far_};
+  const Grads gi{{(const float*)g_means2d, sb_means2d, sn_means2d},
+                 {(const float*)g_conics, sb_conics, sn_conics},
+                 {(const float*)g_depths, sb_depths, sn_depths},
+                 {(const float*)g_colors, sb_colors, sn_colors},
+                 {(const float*)g_opacities, sb_opacities, sn_opacities}};
+  const SceneGrads go{(float*)d_means, (float*)d_log_scales, (float*)d_quats,
+                      (float*)d_logits, (float*)d_sh};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (degree) {
+    case 0: launch_bwd<0>(s, cs, gi, go, st); break;
+    case 1: launch_bwd<1>(s, cs, gi, go, st); break;
+    case 2: launch_bwd<2>(s, cs, gi, go, st); break;
+    default: launch_bwd<3>(s, cs, gi, go, st); break;
   }
   return (int)cudaGetLastError();
 }

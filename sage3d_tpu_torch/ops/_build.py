@@ -97,6 +97,14 @@ KERNELS = {
         "sage3d_project": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P],
+        # K8: the same scene and camera arguments up to far; then for each
+        # of the gradients of means2d, conics, depths, colors, opacities
+        # its pointer (or NULL) and its camera and Gaussian strides in
+        # floats; then the gradients of means, log_scales, quats, logits,
+        # sh; stream
+        "sage3d_project_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                               _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F,
+                               *[_P, _L, _L] * 5, _P, _P, _P, _P, _P, _P],
     }),
 }
 

@@ -877,14 +877,16 @@ def test_projection_kernel_is_bitwise_its_plain_twin(deg, width, height):
 
 
 def test_project_gaussians_takes_k7_only_without_a_gradient():
-    """On the card ``project_gaussians`` launches K7 under ``no_grad`` and
-    for a scene that requires no gradient, and runs the plain version, with
-    its gradient, for one that does."""
+    """On the card ``project_gaussians`` launches K7 alone under ``no_grad``
+    and for a scene that requires no gradient, and K7 under ``_ProjectK7``
+    for one that does: its fields bitwise the plain version's, K8 launched
+    once by the backward. A camera that requires a gradient raises."""
     from sage3d_tpu_torch.ops import projection
     _need_card("K7")
     scene = _k7_scene(3, n=4000)
     cams, stacked = _k7_cameras(640, 480)
     before = projection.project_gaussians_cuda.launches
+    before_k8 = projection.project_gaussians_backward_cuda.launches
     plain = projection.project_gaussians_plain(scene, stacked, 3)
     _bitwise(projection.project_gaussians(scene, stacked), plain, "no grad")
     leaves = scene._replace(**{f: getattr(scene, f).clone().requires_grad_()
@@ -894,9 +896,15 @@ def test_project_gaussians_takes_k7_only_without_a_gradient():
                  "no_grad")
     assert projection.project_gaussians_cuda.launches == before + 2
     got = projection.project_gaussians(leaves, stacked)
-    assert projection.project_gaussians_cuda.launches == before + 2
+    assert projection.project_gaussians_cuda.launches == before + 3
+    _bitwise(type(got)(*(t.detach() for t in got)), plain, "under autograd")
+    assert projection.project_gaussians_backward_cuda.launches == before_k8
     got.colors.sum().backward()
+    assert projection.project_gaussians_backward_cuda.launches == before_k8 + 1
     assert leaves.sh.grad is not None and bool(leaves.sh.grad.abs().sum() > 0)
+    with pytest.raises(ValueError, match="camera"):
+        projection.project_gaussians(leaves, stacked._replace(
+            fx=stacked.fx.clone().requires_grad_()))
 
 
 def test_projection_kernel_refuses_what_it_does_not_take():
@@ -915,6 +923,138 @@ def test_projection_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="one CUDA device"):
         projection.project_gaussians_cuda(
             scene, cams[0]._replace(position=cams[0].position.cpu()), 1)
+
+
+# -- K8, the projection's backward -----------------------------------------
+
+# K8 against autograd of the plain chain: each gradient within K8_REL of its
+# largest entry (the same arithmetic in f32, its sums in another order).
+K8_REL = 1e-4
+FIELDS = ("means2d", "conics", "depths", "colors", "opacities")
+
+
+def _k8_against_autograd(scene, cams, deg: int = 3, clamp=None,
+                         seed: int = 0) -> dict:
+    """Random gradients of the five float fields back through K8
+    (``project_gaussians`` under autograd, K8 launched once) and through
+    autograd of ``project_gaussians_plain``: each scene gradient's largest
+    error over its largest entry."""
+    from sage3d_tpu_torch.ops import projection
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    grads = {}
+    for route in ("k8", "plain"):
+        leaves = scene._replace(**{k: getattr(scene, k).clone()
+                                   .requires_grad_() for k in PARAMS})
+        before = projection.project_gaussians_backward_cuda.launches
+        if route == "k8":
+            proj = projection.project_gaussians(leaves, cams, deg, clamp)
+            ups = [torch.randn(getattr(proj, f).shape, generator=g,
+                               device="cuda") for f in FIELDS]
+        else:
+            proj = projection.project_gaussians_plain(leaves, cams, deg,
+                                                      clamp)
+        torch.autograd.backward([getattr(proj, f) for f in FIELDS], ups)
+        torch.cuda.synchronize()
+        assert projection.project_gaussians_backward_cuda.launches == (
+            before + (route == "k8"))
+        grads[route] = {k: getattr(leaves, k).grad for k in PARAMS}
+        del leaves, proj
+    rel = {}
+    for k in PARAMS:
+        ref = grads["plain"][k]
+        scale = float(ref.abs().max())
+        assert scale > 0, k
+        rel[k] = float((grads["k8"][k] - ref).abs().max()) / scale
+    assert not bool(grads["k8"]["sh"][:, (deg + 1) ** 2:].any())
+    return rel
+
+
+@pytest.mark.parametrize("n_cams", [1, 8])
+def test_projection_backward_kernel_matches_autograd_on_the_1m_room(n_cams):
+    """K8 against autograd of the plain chain on a 1M room at SH 3 with
+    ``_k7_scene``'s planted Gaussians, 1920x1080, one camera and a batch of
+    8, with and without ``clamp_dims``: each gradient within ``K8_REL`` of
+    its largest entry."""
+    _need_card("K8")
+    scene = _k7_scene(3, n=1_000_000)
+    cams, stacked = _k7_cameras(1920, 1080)
+    cam = cams[0] if n_cams == 1 else stacked
+    for clamp in (None, (3840, 2160)):
+        rel = _k8_against_autograd(scene, cam, 3, clamp, seed=n_cams)
+        assert max(rel.values()) <= K8_REL, (clamp, rel)
+
+
+def test_projection_backward_kernel_past_2_24_rows():
+    """K8 against autograd of the plain chain on ``_room_past_2_24``'s
+    2^24 + 2^20 rows (64-bit row offsets), one camera at SH 3."""
+    _need_card("K8")
+    scene, _ = _room_past_2_24()
+    cam = make_camera([0.0, -4.0, 1.2], [0.0, 1.0, -0.1], 160, 128,
+                      device="cuda")
+    rel = _k8_against_autograd(scene, cam, scene.sh_degree, seed=3)
+    assert max(rel.values()) <= K8_REL, rel
+
+
+def test_train_steps_with_k8_stay_within_the_fit_limits(monkeypatch):
+    """Three ``cuda`` train steps of the 1M room at 1920x1080 and SH 3 from
+    a noisy start, with the projection through K7 and K8 and through the
+    plain chain (K7's rule forced off): the losses, the step-1 gradient
+    norms and the change norms after step 3 of every group within the fit
+    cell's ``loss_gap``, ``grad_gap`` and ``change_gap``
+    (``perfbench/workloads/fit-1m-1080p.json``), by the reference's
+    measures."""
+    import json
+    from pathlib import Path
+
+    from perfbench.reference import train as rt
+    from sage3d_tpu_torch.ops import projection
+    from sage3d_tpu_torch.parallel import train
+    from sage3d_tpu_torch.renderer.camera import stack_cameras
+    _need_card("K8")
+    limits = json.loads((Path(__file__).resolve().parents[1] / "perfbench"
+                         / "workloads" / "fit-1m-1080p.json").read_text()
+                        )["limits"]
+    room = synthetic_room(1_000_000, seed=0, sh_degree=3, device="cuda")
+    cam = make_camera([0.0, -4.0, 1.2], [0.0, 1.0, -0.1], 1920, 1080,
+                      device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    start = room._replace(
+        sh=room.sh + torch.randn(room.sh.shape, generator=g, device="cuda"),
+        opacity_logits=room.opacity_logits + 0.5 * torch.randn(
+            room.opacity_logits.shape, generator=g, device="cuda"))
+    bk = trender.budget_kwargs(trender.autotune_all(
+        start, cam, pair_margin=1.5, grad_margin=1.5))
+    with torch.no_grad():
+        target = trender.render(room, cam, backend="cuda", **bk)["rgb"][None]
+    runs = {}
+    for route in ("k8", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(projection, "_takes_kernel",
+                                lambda s, c: False)
+        opt = train.make_group_optimizer(extent=1.0)
+        step, _ = train.make_train_step(start, cam, optimizer=opt,
+                                        backend="cuda", **bk)
+        state = train.init_train_state(start, opt)
+        before = projection.project_gaussians_backward_cuda.launches
+        losses, grad1 = [], None
+        for i in range(3):
+            state, loss = step(state, stack_cameras([cam]), target)
+            losses.append(float(loss))
+            if i == 0:
+                grad1 = {k: float(torch.linalg.vector_norm(
+                    state.params[k].grad.double())) for k in PARAMS}
+        assert projection.project_gaussians_backward_cuda.launches == (
+            before + (3 if route == "k8" else 0))
+        change = {k: float(torch.linalg.vector_norm(
+            (state.params[k].detach() - getattr(start, k)).double()))
+            for k in PARAMS}
+        runs[route] = (losses, grad1, change)
+        del state, step, opt
+    (l_k8, g_k8, c_k8), (l_pl, g_pl, c_pl) = runs["k8"], runs["plain"]
+    assert rt.loss_gap(l_k8, l_pl) <= limits["loss_gap"], (l_k8, l_pl)
+    assert rt.worst_leaf_gap(g_k8, g_pl) <= limits["grad_gap"], (g_k8, g_pl)
+    assert rt.worst_leaf_gap(c_k8, c_pl, ref_grad=g_pl) <= limits[
+        "change_gap"], (c_k8, c_pl)
 
 
 def _room_past_2_24(n_total: int = 2**24 + 2**20, n_room: int = 20_000):

@@ -208,3 +208,258 @@ def test_projection_kernel_wrapper_refuses(case, message):
     with pytest.raises(ValueError, match=message):
         tproj.project_gaussians_cuda(ts, tc, deg)
     assert tproj.project_gaussians_cuda.launches == before
+
+
+# -- K8's twin, the autograd Function and its dispatch (K8 itself runs on the
+# card: tests/test_torch_gpu.py) ---------------------------------------------
+
+FIELDS = ("means2d", "conics", "depths", "colors", "opacities")
+
+
+def _leaves(ts):
+    return ts._replace(**{f: getattr(ts, f).clone().requires_grad_()
+                          for f in tproj.GaussianScene._fields[:5]})
+
+
+def _grad_case(camera: str, dtype):
+    """A 400-Gaussian room and a camera: ``single``, a ``batch`` of 3, or
+    ``near``: a batch whose first camera stands inside the room with 20
+    Gaussians planted on its image plane, so that the frustum clamp and the
+    ``tz`` guard engage."""
+    from sage3d_tpu_torch.renderer.camera import make_camera as tmake
+    from sage3d_tpu_torch.renderer.camera import stack_cameras, unstack_cameras
+    ts, tc = _port(synthetic_room(num_gaussians=400, seed=5, sh_degree=3),
+                   _cam())
+    if camera != "single":
+        tc = _batch()
+    if camera == "near":
+        first = tmake([0.0, -0.5, 1.0], [0.0, 1.0, 0.0], W, H, device="cpu")
+        tc = stack_cameras([first, *unstack_cameras(tc)[1:]])
+        means = ts.means.clone()
+        right = first.cam_to_world[:, 0]
+        means[:20] = first.position + right * torch.linspace(-0.3, 0.3,
+                                                               20)[:, None]
+        ts = ts._replace(means=means)
+    ts = ts._replace(**{f: getattr(ts, f).to(dtype)
+                        for f in tproj.GaussianScene._fields[:5]})
+    tc = tc._replace(**{f: getattr(tc, f).to(dtype)
+                        for f in tc._fields[:6]})
+    return ts, tc
+
+
+def _upstream(proj, seed: int, drop=()):
+    """Random gradients for the five float fields (None for those in
+    ``drop``), of their dtype and shape."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(None if f in drop else torch.randn(
+        getattr(proj, f).shape, generator=g, dtype=getattr(proj, f).dtype)
+        for f in FIELDS)
+
+
+def _autograd(ts, tc, deg, grads, clamp=None):
+    leaves = _leaves(ts)
+    proj = tproj.project_gaussians_plain(leaves, tc, deg, clamp)
+    outs = [(getattr(proj, f), g) for f, g in zip(FIELDS, grads)
+            if g is not None]
+    torch.autograd.backward([o for o, _ in outs], [g for _, g in outs])
+    return [getattr(leaves, f).grad
+            for f in tproj.GaussianScene._fields[:5]]
+
+
+def _close(got, want, rel, what):
+    """Each gradient within ``rel`` of its largest entry."""
+    for name, a, b in zip(tproj.GaussianScene._fields[:5], got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, (what, name)
+        scale = float(b.abs().max())
+        assert scale > 0, (what, name)
+        err = float((a - b).abs().max())
+        assert err <= rel * scale, f"{what}: {name} off by {err / scale:.3g}"
+
+
+@pytest.mark.parametrize("camera", ["single", "batch", "near"])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_projection_backward_twin_matches_autograd(dtype, deg, camera):
+    """``project_gaussians_backward_plain`` (K8's twin) against autograd of
+    ``project_gaussians_plain``, at SH ``deg`` of a degree-3 scene (the
+    coefficients above it get zeros). The two differ only in the order of
+    their sums: 1e-10 of each gradient's largest entry in float64, 2e-5 in
+    float32 (~100 f32 roundings a row; the CPU runs measured 1e-6)."""
+    ts, tc = _grad_case(camera, dtype)
+    grads = _upstream(tproj.project_gaussians_plain(ts, tc, deg), seed=deg,
+                      drop=("depths",) if camera == "near" else ())
+    for clamp in (None, (2 * W, 2 * H)):
+        want = _autograd(ts, tc, deg, grads, clamp)
+        got = tproj.project_gaussians_backward_plain(ts, tc, deg, clamp, grads)
+        _close(got, want, 1e-10 if dtype == torch.float64 else 2e-5,
+               f"{camera}, clamp {clamp}")
+        assert not bool(got[4][:, (deg + 1) ** 2:].any())
+    if camera == "near":
+        # the first camera's guard and clamp both engage
+        depths = tproj.project_gaussians_plain(ts, tc, deg).depths[0]
+        assert int((depths.abs() < 1e-6).sum()) >= 10
+        means2d = tproj.project_gaussians_plain(ts, tc, deg).means2d[0]
+        lim = 1.3 * 0.5 * W / float(tc.fx[0])
+        rx = (means2d[:, 0] - float(tc.cx[0])) / float(tc.fx[0])
+        assert int((rx.abs() > lim).sum()) > 50
+
+
+def _stand_ins(monkeypatch):
+    """K7 and K8 replaced by their plain twins, recording their calls, and
+    the kernel rule forced: ``project_gaussians`` then runs its card path
+    on the CPU."""
+    calls = {"k7": 0, "k8": []}
+
+    def k7(*a):
+        calls["k7"] += 1
+        return tproj.project_gaussians_plain(*a)
+
+    def k8(scene, camera, deg, clamp, grads):
+        calls["k8"].append(tuple(g is not None for g in grads))
+        return tproj.project_gaussians_backward_plain(scene, camera, deg,
+                                                      clamp, grads)
+    monkeypatch.setattr(tproj, "_takes_kernel", lambda s, c: True)
+    monkeypatch.setattr(tproj, "project_gaussians_cuda", k7)
+    monkeypatch.setattr(tproj, "project_gaussians_backward_cuda", k8)
+    return calls
+
+
+@pytest.mark.parametrize("camera", ["single", "batch"])
+def test_project_gaussians_under_autograd_takes_k7_and_k8(camera,
+                                                          monkeypatch):
+    """On the card a scene that wants a gradient goes through
+    ``_ProjectK7``: K7 once forward (its fields those of the plain
+    version), K8 once backward with the output gradients it was given
+    (None for an unused field), and the scene's gradients autograd's of the
+    plain version; ``projection.grad_kernel_rows`` counts its rows, which
+    ``projection.kernel_rows`` counts too (stand-ins for K7 and K8)."""
+    from sage3d_tpu_torch.utils import profiling as prof
+    ts, tc = _grad_case(camera, torch.float32)
+    calls = _stand_ins(monkeypatch)
+    leaves = _leaves(ts)
+    prof.reset()
+    prof.enable()
+    try:
+        with prof.span("render.project"):
+            got = tproj.project_gaussians(leaves, tc, clamp_dims=(96, 72))
+            with torch.no_grad():
+                tproj.project_gaussians(leaves, tc)
+    finally:
+        prof.disable()
+    counted = prof.counters()
+    prof.reset()
+    rows = 400 * (3 if camera == "batch" else 1)
+    assert counted["projection.rows"] == 2 * rows
+    assert counted["projection.kernel_rows"] == 2 * rows
+    assert counted["projection.grad_kernel_rows"] == rows
+    assert calls["k7"] == 2 and calls["k8"] == []
+    _fields_equal(got._replace(**{f: getattr(got, f).detach()
+                                  for f in got._fields}),
+                  tproj.project_gaussians_plain(ts, tc, 3, (96, 72)))
+    assert all(getattr(got, f).requires_grad for f in FIELDS)
+    assert not any(getattr(got, f).requires_grad
+                   for f in ("radii", "visible", "extents"))
+    grads = _upstream(got, seed=7, drop=("depths",))
+    torch.autograd.backward([getattr(got, f) for f, g in zip(FIELDS, grads)
+                             if g is not None],
+                            [g for g in grads if g is not None])
+    assert calls["k8"] == [(True, True, False, True, True)]
+    _close([getattr(leaves, f).grad for f in tproj.GaussianScene._fields[:5]],
+           _autograd(ts, tc, 3, grads, (96, 72)), 2e-5, camera)
+
+
+def test_project_gaussians_refuses_a_camera_gradient_on_the_card(
+        monkeypatch):
+    """On the card a camera tensor that requires a gradient raises (K8
+    gives the scene's gradients only); under ``no_grad`` it is K7's."""
+    ts, tc = _grad_case("single", torch.float32)
+    calls = _stand_ins(monkeypatch)
+    tc = tc._replace(fx=tc.fx.clone().requires_grad_())
+    with pytest.raises(ValueError, match="camera"):
+        tproj.project_gaussians(_leaves(ts), tc)
+    with torch.no_grad():
+        tproj.project_gaussians(ts, tc)
+    assert calls["k7"] == 1 and calls["k8"] == []
+
+
+@pytest.mark.parametrize("case,message", [
+    ("dtype", "float32"), ("shape", "expected"), ("degree", "SH degree"),
+    ("cpu", "one CUDA device"), ("gradient shape", "gradient"),
+    ("gradient dtype", "gradient")])
+def test_projection_backward_wrapper_refuses(case, message):
+    """K8's wrapper checks each output gradient's shape, type and device,
+    and the scene and the camera as K7's does, before it launches."""
+    ts, tc, deg = _refused(case if case in ("dtype", "shape", "degree")
+                           else "cpu")
+    grads = [None] * 5
+    if case == "gradient shape":
+        grads[0] = torch.zeros((400, 3))
+    elif case == "gradient dtype":
+        grads[3] = torch.zeros((400, 3), dtype=torch.float64)
+    before = tproj.project_gaussians_backward_cuda.launches
+    with pytest.raises(ValueError, match=message):
+        tproj.project_gaussians_backward_cuda(ts, tc, deg, None, grads)
+    assert tproj.project_gaussians_backward_cuda.launches == before
+
+
+def _jax_vjp(ts, tc, deg, grads, clamp=None):
+    """The scene's gradients from ``jax.vjp`` of the JAX package's
+    ``project_gaussians`` on the same numpy inputs and output gradients
+    (zeros for a dropped field), camera by camera and summed over the
+    batch, as the port's stacked call sums them."""
+    import jax
+    import jax.numpy as jnp
+    from sage3d_tpu.renderer.camera import Camera as JCamera
+    from sage3d_tpu.renderer.scene import GaussianScene as JScene
+    from sage3d_tpu_torch.renderer.camera import unstack_cameras
+    params = tuple(jnp.asarray(_np(getattr(ts, f)))
+                   for f in tproj.GaussianScene._fields[:5])
+    ids = jnp.asarray(_np(ts.semantic_ids))
+    cams = unstack_cameras(tc) if tc.fx.ndim else [tc]
+    total = [np.zeros(p.shape, np.float64) for p in params]
+    for i, c in enumerate(cams):
+        jc = JCamera(*(jnp.asarray(_np(getattr(c, f)))
+                       for f in c._fields[:6]), c.width, c.height,
+                     c.near, c.far)
+
+        def fields(*p, jc=jc):
+            out = jproj.project_gaussians(JScene(*p, ids), jc, deg, clamp)
+            return tuple(getattr(out, f) for f in FIELDS)
+        outs, vjp = jax.vjp(fields, *params)
+        cot = tuple(jnp.zeros_like(o) if g is None
+                    else jnp.asarray(_np(g[i] if tc.fx.ndim else g))
+                    for o, g in zip(outs, grads))
+        for t, g in zip(total, vjp(cot)):
+            t += np.asarray(g, np.float64)
+    return [torch.from_numpy(t.astype(np.float32)) for t in total]
+
+
+@pytest.mark.parametrize("camera", ["single", "batch", "near"])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_projection_backward_matches_jax_vjp(deg, camera, monkeypatch):
+    """K8's twin, and ``project_gaussians`` under autograd through
+    ``_ProjectK7`` (K7 and K8 stand-ins), against ``jax.vjp`` of the JAX
+    package's ``project_gaussians``, which takes this gradient from XLA's
+    autodiff: same float32 inputs, same output gradients, with and without
+    the clamp. Each gradient within 1e-5 of its largest entry: both sides
+    round in float32 in their own order (the CPU runs measured at most
+    1e-6), and ties, where PyTorch's and JAX's rules for ``clamp`` and
+    ``maximum`` differ, do not occur here."""
+    ts, tc = _grad_case(camera, torch.float32)
+    grads = _upstream(tproj.project_gaussians_plain(ts, tc, deg), seed=deg,
+                      drop=("depths",) if camera == "near" else ())
+    calls = _stand_ins(monkeypatch)
+    for clamp in (None, (2 * W, 2 * H)):
+        want = _jax_vjp(ts, tc, deg, grads, clamp)
+        twin = tproj.project_gaussians_backward_plain(ts, tc, deg, clamp,
+                                                      grads)
+        _close(twin, want, 1e-5, f"twin, {camera}, clamp {clamp}")
+        leaves = _leaves(ts)
+        got = tproj.project_gaussians(leaves, tc, deg, clamp)
+        torch.autograd.backward(
+            [getattr(got, f) for f, g in zip(FIELDS, grads) if g is not None],
+            [g for g in grads if g is not None])
+        _close([getattr(leaves, f).grad
+                for f in tproj.GaussianScene._fields[:5]], want, 1e-5,
+               f"_ProjectK7, {camera}, clamp {clamp}")
+    assert calls["k7"] == 2 and len(calls["k8"]) == 2
