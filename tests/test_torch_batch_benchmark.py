@@ -34,18 +34,6 @@ MEASURES = {"distance_to_goal", "success", "oracle_success", "path_length",
             "exploration_coverage"}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread while this file runs: beside the suite's other
-    workers, torch's own pool on every worker oversubscribes the cores, and
-    the many small ops of the planner and the CPU renders then wait on each
-    other (the pipeline ran ~15x slower than alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def policy(images, instruction, current_yaw, depth_images=None):
     return {"vx": 0.3, "vy": 0.0, "yaw_rate": 0.0, "duration_s": 1.0,
             "stop": False, "parsed_from": "scripted"}

@@ -62,18 +62,6 @@ T = dict(actions=tactions, images=timages, llm=tllm, merge=tmerge,
          text=ttext, tg=ttg, trans=ttrans)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread while this file runs: beside the suite's other
-    workers, torch's own pool on every worker oversubscribes the cores, and
-    the many small ops of the planner and the CPU renders then wait on each
-    other (the pipeline ran ~15x slower than alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def read(path, root):
     """A JSON file with its package's root directory written as <root>."""
     return json.loads(Path(path).read_text().replace(str(root), "<root>"))
