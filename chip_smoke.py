@@ -34,7 +34,17 @@ no result line):
      anatomy probe's production variant (K2 line for line); then, on the same
      frame
      and K2's k_end with a seeded cotangent, K3 (``csrc/composite_bwd.cu``)
-     against its plain version, and K4 (``csrc/segreduce.cu``) bitwise
+     against its plain version (``k2_k3_in_segments``) as the main path
+     launches it under autograd: K2 with the checkpoints of segments of
+     ``segment_chunks`` chunks (its out and k_end bitwise K2's without; the
+     checkpoint rows of every boundary the walks go past within K2's
+     tolerances of ``composite_fwd_plain(seg=)``'s) and K3 walking those
+     segments against ``composite_bwd_plain(ckpt=, seg=)``; the same at
+     segments of one chunk, and K3 at a block a tile; then the same at the
+     main path's segments on a 1152x224 band of the 1M room made faint
+     (``tests/test_torch_gpu.py``'s ``_split_frame``), whose 252 tiles walk
+     hundreds of chunks, so that the segments split them; K4
+     (``csrc/segreduce.cu``) bitwise
      against its plain version on K3's id-sorted gradient rows, launched
      twice (the two results must be bitwise equal); then the backward's
      d_attrs through K3, the id sort and K4 with the tight gradient buffer
@@ -621,6 +631,85 @@ def alpha_hits(attrs, pg, start, count, tiles_x, chunks,
                                         py)[2]
                 hits += ((alpha > 0) & (k < walk)[:, None, None]).sum()
     return int(hits)
+
+
+def walked_checkpoints(start, kend, seg: int):
+    """Rows of the segment checkpoints that a walk of ``kend[t]`` chunks
+    goes past: tile t's before every chunk k in (0, kend[t]) that is a
+    multiple of ``seg`` (``composite_cuda.checkpoint_rows``)."""
+    import torch
+    from sage3d_tpu_torch.ops.composite_cuda import CHUNK
+    n = torch.clamp((kend.long() - 1) // seg, min=0)
+    t = torch.repeat_interleave(torch.arange(n.shape[0], device=n.device), n)
+    j = torch.arange(t.shape[0], device=n.device) - (torch.cumsum(n, 0)
+                                                     - n)[t]
+    return start.long()[t] // (seg * CHUNK) + j + 1
+
+
+def k2_k3_in_segments(k2_args, out_k, kend_k, gout, c_cap: int, seg: int,
+                      label: str, cam_tiles: int = 0):
+    """K2 writing the checkpoints of segments of ``seg`` chunks and K3
+    walking them, as the main path launches both under autograd, against
+    K2 without checkpoints (out and k_end bitwise) and the plain twins: the
+    checkpoint rows of every boundary both walks go past within K2's
+    tolerances, K3's channels within ``K3_REL`` of each channel's max, its
+    id columns equal and the rows past sum(allowed) unfilled. Returns K3's
+    arguments, their keywords, its slot buffer and its max_abs error."""
+    import torch
+    from sage3d_tpu_torch.ops import composite_cuda as cc
+    attrs, pg, start = k2_args[:3]
+    kw = {"cam_tiles": cam_tiles} if cam_tiles else {}
+    out_s, kend_s, ckpt = cc.composite_fwd(*k2_args, seg=seg, **kw)
+    _, kend_p, ckpt_p = cc.composite_fwd_plain(*k2_args, seg=seg, **kw)
+    torch.cuda.synchronize()
+    out_equal = torch.equal(out_s, out_k) and torch.equal(kend_s, kend_k)
+    rows = walked_checkpoints(start, torch.minimum(kend_k, kend_p), seg)
+    ck, ck_p = ckpt[rows], ckpt_p[rows]
+    ck_err = max(float((ck[:, ch] - ck_p[:, ch]).abs().max())
+                 for ch in (0, 1, 2, 3, 5)) if len(rows) else 0.0
+    ck_depth = bool(torch.allclose(ck[:, 4], ck_p[:, 4], rtol=K2_DEPTH_TOL,
+                                   atol=K2_DEPTH_TOL))
+    del out_s, kend_s, ckpt_p, ck, ck_p
+    chunk0, allowed = cc.slot_ranges(kend_k, c_cap)
+    k3_args = (*k2_args[:4], chunk0, allowed, out_k, gout, c_cap,
+               k2_args[4])
+    k3_kw = dict(kw, ckpt=ckpt, seg=seg)
+    slots = cc.composite_bwd(*k3_args, **k3_kw)
+    slots_p = cc.composite_bwd_plain(*k3_args, **k3_kw)
+    torch.cuda.synchronize()
+    k3_err = max(float((slots[:, ch] - slots_p[:, ch]).abs().max())
+                 for ch in range(cc.NGRAD))
+    k3_rel = max(float((slots[:, ch] - slots_p[:, ch]).abs().max())
+                 / max(float(slots_p[:, ch].abs().max()), 1e-30)
+                 for ch in range(cc.NGRAD))
+    used = int(allowed.sum()) * cc.CHUNK
+    n = attrs.shape[0]
+    ids_equal = torch.equal(slots[:, cc.GID_COL], slots_p[:, cc.GID_COL]) \
+        and torch.equal(slots[:, cc.SLOT_HI_COL], slots_p[:, cc.SLOT_HI_COL])
+    tail_unfilled = used == len(slots) or (
+        float(slots[used:, :cc.NGRAD].abs().max()) == 0.0
+        and bool((cc.slot_ids(slots[used:], n) == n).all()))
+    longest = int(kend_k.max())
+    print(f"K2/K3 in segments of {seg} chunks at {label}: "
+          f"{int(kend_k.sum())} chunks walked, the longest tile {longest} "
+          f"({-(-longest // seg)} segments); K2's out and k_end bitwise "
+          f"without checkpoints: {out_equal}; "
+          f"{rows.shape[0]} checkpoint rows walked past, max_abs against "
+          f"plain T/rgb/alpha {ck_err:.3e}; K3 vs plain (same checkpoints): "
+          f"max_abs {k3_err:.3e}, max over channels of max_abs / max|plain| "
+          f"{k3_rel:.3e}", flush=True)
+    check(out_equal, f"{label}: K2 with checkpoints every {seg} chunks: "
+          "out and k_end bitwise K2's without")
+    check(ck_err <= K2_ATOL and ck_depth, f"{label}: K2's checkpoints every "
+          f"{seg} chunks within {K2_ATOL} (depth rtol=atol={K2_DEPTH_TOL}) "
+          "of the plain version's")
+    check(k3_rel <= K3_REL, f"{label}: K3 in segments of {seg} chunks within "
+          f"{K3_REL} x channel max of its plain twin")
+    check(ids_equal, f"{label}: K3 in segments: id columns equal the plain "
+          "twin's")
+    check(tail_unfilled, f"{label}: K3 in segments: slots past sum(allowed) "
+          "unfilled")
+    return k3_args, k3_kw, slots, k3_err
 
 
 def k6_bound(n_g: int, n_solid: int, b: int):
@@ -3515,6 +3604,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    from pathlib import Path
+
     import numpy as np
     from sage3d_tpu_torch.benchmarks import bench, kernel_anatomy
     from sage3d_tpu_torch.benchmarks._util import nvidia_smi_line
@@ -3593,34 +3684,58 @@ def main() -> int:
           "probe, early stop on, all blocks: bitwise equal to K2 at frame a")
     del probe_a
 
-    # 4b. K3 against its plain version ----------------------------------------
+    # 4b. K3 against its plain version: as the main path launches it under
+    # autograd, in segments of segment_chunks chunks from K2's checkpoints
+    # (no tile of frame a reaches a segment's end); in segments of one chunk
+    # (every chunk from a checkpoint); and a block a tile ----------------------
     c_cap_a = int(budgets_train["grad_capacity"])
-    chunk0_a, allowed_a = cc.slot_ranges(kend_k, c_cap_a)
     gen = torch.Generator(device=dev).manual_seed(0)
     gout_a = torch.randn(out_k.shape, generator=gen, device=dev)
-    k3_args = (attrs_a, pg, start, count, chunk0_a, allowed_a, out_k, gout_a,
-               c_cap_a, plan.tiles_x)
-    slots_k = cc.composite_bwd(*k3_args)
+    check(c_cap_a >= int(kend_k.sum()), "training grad_capacity >= sum k_end")
+    seg_a = cc.segment_chunks(pg.shape[0], dev)
+    check(seg_a > 0, "frame a: the main path's K3 walks segments")
+    k3_args, k3_kw, slots_k, k3_err = k2_k3_in_segments(
+        k2_args, out_k, kend_k, gout_a, c_cap_a, seg_a, "frame a")
+    k2_k3_in_segments(k2_args, out_k, kend_k, gout_a, c_cap_a, 1, "frame a")
+    allowed_a = k3_args[5]
+    slots_0 = cc.composite_bwd(*k3_args)
     slots_p = cc.composite_bwd_plain(*k3_args)
     torch.cuda.synchronize()
     used = int(allowed_a.sum()) * cc.CHUNK
     n_a = attrs_a.shape[0]
-    k3_err = max(float((slots_k[:, ch] - slots_p[:, ch]).abs().max())
-                 for ch in range(cc.NGRAD))
-    k3_rel = max(float((slots_k[:, ch] - slots_p[:, ch]).abs().max())
+    k3_err_0 = max(float((slots_0[:, ch] - slots_p[:, ch]).abs().max())
+                   for ch in range(cc.NGRAD))
+    k3_rel = max(float((slots_0[:, ch] - slots_p[:, ch]).abs().max())
                  / max(float(slots_p[:, ch].abs().max()), 1e-30)
                  for ch in range(cc.NGRAD))
-    ids_equal = torch.equal(slots_k[:, cc.GID_COL], slots_p[:, cc.GID_COL])
-    tail_unfilled = used == len(slots_k) or (
-        float(slots_k[used:, :cc.NGRAD].abs().max()) == 0.0
-        and bool((slots_k[used:, cc.GID_COL] == n_a).all()))
-    print(f"K3 vs plain: max_abs {k3_err:.3e}, max over channels of "
-          f"max_abs / max|plain| {k3_rel:.3e}, {used} slot rows of "
-          f"{len(slots_k)} (c_cap {c_cap_a})", flush=True)
-    check(c_cap_a >= int(kend_k.sum()), "training grad_capacity >= sum k_end")
-    check(k3_rel <= K3_REL, f"K3 channels within {K3_REL} x channel max")
-    check(ids_equal, "K3 id column equal to the plain version's")
-    check(tail_unfilled, "K3 slots past sum(allowed): zero payload, id N")
+    ids_equal = torch.equal(slots_0[:, cc.GID_COL], slots_p[:, cc.GID_COL])
+    tail_unfilled = used == len(slots_0) or (
+        float(slots_0[used:, :cc.NGRAD].abs().max()) == 0.0
+        and bool((slots_0[used:, cc.GID_COL] == n_a).all()))
+    print(f"K3 a block a tile vs plain: max_abs {k3_err_0:.3e}, max over "
+          f"channels of max_abs / max|plain| {k3_rel:.3e}, {used} slot rows "
+          f"of {len(slots_0)} (c_cap {c_cap_a})", flush=True)
+    check(k3_rel <= K3_REL, f"K3 a block a tile: channels within {K3_REL} x "
+          "channel max")
+    check(ids_equal, "K3 a block a tile: id column equal to the plain "
+          "version's")
+    check(tail_unfilled, "K3 a block a tile: slots past sum(allowed): zero "
+          "payload, id N")
+    del slots_0, slots_p
+
+    # 4b'. the same on a 1152x224 band of the 1M room made faint, whose 252
+    # tiles walk hundreds of chunks as a mesh rank's band does: the main
+    # path's segments split them --------------------------------------------
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_gpu
+    band_args, band_tiles, band_out, band_kend, band_gout, band_cap = \
+        test_torch_gpu._split_frame("band")
+    seg_band = cc.segment_chunks(band_args[1].shape[0], dev)
+    check(0 < seg_band < int(band_kend.max()),
+          "band: the main path's K3 splits the longest tile")
+    k2_k3_in_segments(band_args, band_out, band_kend, band_gout, band_cap,
+                      seg_band, "band", cam_tiles=band_tiles)
+    del band_args, band_out, band_kend, band_gout
 
     # 4c. K4 against its plain version, and determinism, on the rows the
     # backward gives it: every slot row, sorted by id (the unfilled rows,
@@ -4102,9 +4217,10 @@ def main() -> int:
           f"{k2_bytes / 1e6:.1f} MB, {k2_evals:.4e} pair-pixel evaluations, "
           f"{k2_hits:.4e} with alpha > 0)", flush=True)
 
-    k3_ms = cuda_ms(lambda: cc.composite_bwd(*k3_args), reps=20, warmup=3)
-    k3_plain_ms = cuda_ms(lambda: cc.composite_bwd_plain(*k3_args), reps=2,
-                          warmup=1)
+    k3_ms = cuda_ms(lambda: cc.composite_bwd(*k3_args, **k3_kw), reps=20,
+                    warmup=3)
+    k3_plain_ms = cuda_ms(lambda: cc.composite_bwd_plain(*k3_args, **k3_kw),
+                          reps=2, warmup=1)
     # Bytes K3 must move: the pair ids of the chunks it walks, columns 0-11
     # of each Gaussian they name, channels 0-5 of the forward's images and of
     # their cotangent, and one 16-float slot row written per walked pair;
@@ -4147,7 +4263,7 @@ def main() -> int:
         b2b = {name: back_to_back_ms(fn) for name, fn in (
             ("K1", k1_run),
             ("K2", lambda: composite_cuda.composite_fwd(*k2_args)),
-            ("K3", lambda: cc.composite_bwd(*k3_args)),
+            ("K3", lambda: cc.composite_bwd(*k3_args, **k3_kw)),
             ("K4", lambda: segreduce.segment_reduce_sorted(*k4_args,
                                                            perm=perm_a)),
             ("index_add_", lambda: torch.zeros((n_a, cc.NGRAD), device=dev)
@@ -4158,7 +4274,8 @@ def main() -> int:
           f"calls queued behind a spin of the card): {json.dumps(dev_ms)}; "
           f"host ms per call queueing them: {json.dumps(host_ms)}",
           flush=True)
-    print(f"K3 at frame a {card}: kernel {k3_ms:.3f} ms (events around one "
+    print(f"K3 at frame a {card}, in the main path's segments of {seg_a} "
+          f"chunks: kernel {k3_ms:.3f} ms (events around one "
           f"call), {dev_ms['K3']:.3f} ms back to back, {k3_regs} registers "
           f"per thread, plain {k3_plain_ms:.3f} ms, bound {k3_bound:.3f} ms "
           f"({k3_by}: "

@@ -251,7 +251,7 @@ def _k2_call(lib, k2_args):
     err = _build.launch(
         lib.sage3d_composite_fwd, attrs.device, attrs.data_ptr(),
         pg.data_ptr(), start.data_ptr(), count.data_ptr(), out.data_ptr(),
-        kend.data_ptr(), n_tiles, tiles_x, n_tiles, attrs.shape[0],
+        kend.data_ptr(), None, 0, n_tiles, tiles_x, n_tiles, attrs.shape[0],
         pg.shape[0])
     _build.check(err, "composite_fwd variant")
     return out, kend
@@ -260,12 +260,14 @@ def _k2_call(lib, k2_args):
 def _k3_call(lib, k3_args):
     attrs, pg, start, count, chunk0, allowed, out, gout, c_cap, tiles_x = k3_args
     slots = cc._slot_buffer(c_cap, attrs.shape[0], attrs.device)
+    n_tiles = start.shape[0]
+    work = torch.empty((2 * n_tiles,), dtype=torch.int32, device=attrs.device)
     err = _build.launch(
         lib.sage3d_composite_bwd, attrs.device, attrs.data_ptr(),
         pg.data_ptr(), start.data_ptr(), count.data_ptr(), chunk0.data_ptr(),
-        allowed.data_ptr(), out.data_ptr(), gout.data_ptr(), slots.data_ptr(),
-        start.shape[0], tiles_x, start.shape[0], attrs.shape[0], pg.shape[0],
-        c_cap)
+        allowed.data_ptr(), out.data_ptr(), gout.data_ptr(), None,
+        work.data_ptr(), slots.data_ptr(), n_tiles, tiles_x, n_tiles,
+        attrs.shape[0], pg.shape[0], c_cap, 0, n_tiles)
     _build.check(err, "composite_bwd variant")
     return slots
 

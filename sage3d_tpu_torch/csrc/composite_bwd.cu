@@ -26,6 +26,29 @@
 // from its index within its camera, and chunk0 places each camera's slots
 // (the caller starts camera b's at its own base).
 //
+// Segments: a frame of few long walks (a mesh rank's 224-row band: 252
+// tiles of up to ~500 chunks, under half of one wave of 4 blocks on 132
+// SMs) is bounded by its longest walk with a block a tile. So a block walks
+// one segment of a tile, chunks s * seg up to (s + 1) * seg of the tile's
+// allowed[t], and writes only those chunks' slot rows; every segment still
+// covers the tile's 1024 pixels, so each pair's sums form in one block, with
+// no atomics. A block's (tile, segment) comes from a work list that a
+// one-block kernel builds on the card first (segment_list_kernel: an
+// exclusive scan of ceil(allowed[t] / seg) over the tiles), so the launch is
+// n_items blocks, an upper bound the caller takes from host-known sizes, and
+// blocks past the list's end exit at once; no host read. Segment 0 starts
+// from T = 1 and an empty prefix. Segment s > 0 starts from K2's checkpoint
+// of chunk s * seg (composite_fwd.cu): T is K2's T there, bit for bit, so
+// the replayed alpha, w, T and stop stay the single sweep's; the running
+// prefix of c * w starts as
+//   g_r acc_r + g_g acc_g + g_b acc_b + g_depth acc_depth + g_alpha acc_alpha
+// of K2's accumulators. That rounds otherwise than the sweep's running sum,
+// so past a tile's first segment the rows differ from the single sweep's by
+// float32 rounding, which the suffix's cancellation near saturation
+// magnifies; against a float64 sum of the same walk the split is no less
+// accurate than the sweep (PERF.md). seg = 0 is one segment a tile, the
+// single sweep.
+//
 // The stop must be the forward's: the transmittance is replayed with K2's
 // operations in K2's order (the same tile-local coefficients and power
 // expression, then w = alpha * T; T *= 1 - alpha, sequentially over the
@@ -53,7 +76,7 @@
 //     them (dx is the thread's), e.g. d_cov_x = -0.5 * dx^2 * sum dpower.
 //     The ten warp sums come from one 16-slot reduce-scatter of shuffles,
 //     spent once per 8 pixels.
-//   - 128 registers (__launch_bounds__(128, 4), a 36-byte spill) and 56 KB
+//   - 128 registers (__launch_bounds__(128, 4), a 32-byte spill) and 56 KB
 //     of shared memory a block let 4 blocks share an SM.
 //   - Double-buffered chunks: while chunk k is swept, each thread's loads of
 //     chunk k+1's attribute row (three float4) and chunk k+2's pair id are in
@@ -66,6 +89,7 @@
 // two-block windows and DMA pipelines are not carried over.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -78,6 +102,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 128;  // pairs per chunk
 constexpr int kNfeat = 16;   // floats per attribute / slot row
 constexpr int kNch = 8;      // channels of the forward images
+constexpr int kCkptCh = 6;   // checkpoint channels: T, r, g, b, depth, alpha
+constexpr int kListThreads = 1024;  // the work list's one block
 constexpr int kNgrad = 10;   // gradient channels per pair
 constexpr int kGidCol = 11;  // slot column: the Gaussian id mod 2^24
 constexpr int kGidHiCol = 10;  // slot column: the Gaussian id >> 24
@@ -159,6 +185,58 @@ __device__ __forceinline__ void halve(float (&v)[16], int off, bool up) {
   }
 }
 
+// The segments of tile t in a walk of allowed[t] chunks, seg a segment.
+__device__ __forceinline__ int n_segments(int allowed, int seg) {
+  return allowed > 0 ? (allowed - 1) / seg + 1 : 0;
+}
+
+// The work list of composite_bwd_kernel, in one block: first[t], the index
+// of tile t's first segment (an exclusive scan of n_segments over the
+// tiles), and item[i], the tile of work item i (-1 past the last). Each
+// thread scans a run of consecutive tiles serially; the runs' totals are
+// scanned across the block.
+__global__ void __launch_bounds__(kListThreads)
+segment_list_kernel(const int32_t* __restrict__ allowed, int n_tiles, int seg,
+                    int n_items, int32_t* __restrict__ first,
+                    int32_t* __restrict__ item) {
+  __shared__ int warp_total[kListThreads / 32];
+  __shared__ int total;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int run = (n_tiles + kListThreads - 1) / kListThreads;
+  const int t0 = min(tid * run, n_tiles), t1 = min(t0 + run, n_tiles);
+  int mine = 0;
+  for (int t = t0; t < t1; ++t) mine += n_segments(allowed[t], seg);
+  int incl = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_total[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, w, off);
+      if (lane >= off) w += v;
+    }
+    warp_total[lane] = w;   // inclusive over the warps
+    if (lane == 31) total = w;
+  }
+  __syncthreads();
+  int at = incl - mine + (warp > 0 ? warp_total[warp - 1] : 0);
+  if (total > n_items) __trap();   // fewer blocks than segments
+  for (int t = t0; t < t1; ++t) {
+    first[t] = at;
+    const int n = n_segments(allowed[t], seg);
+    for (int i = 0; i < n; ++i) item[at + i] = t;
+    at += n;
+  }
+  for (int i = total + tid; i < n_items; i += kListThreads) item[i] = -1;
+}
+
 __global__ void __launch_bounds__(kThreads, 4)
 composite_bwd_kernel(const float* __restrict__ attrs,
                      const int32_t* __restrict__ pair_gauss,
@@ -168,12 +246,17 @@ composite_bwd_kernel(const float* __restrict__ attrs,
                      const int32_t* __restrict__ allowed,
                      const float* __restrict__ fwd,
                      const float* __restrict__ gout,
+                     const float* __restrict__ ckpt,
+                     const int32_t* __restrict__ first,
+                     const int32_t* __restrict__ item,
                      float* __restrict__ slots, int tiles_x, int cam_tiles,
-                     int n_gauss, int n_pairs, int c_cap) {
+                     int n_gauss, int n_pairs, int c_cap, int seg) {
   extern __shared__ float4 smem[];
   Coef* coef = reinterpret_cast<Coef*>(smem);                     // [2][kChunk]
   float* part = reinterpret_cast<float*>(coef + 2 * kChunk);  // [2][kWarps][kChunk][kNgrad]
-  const int t = blockIdx.x;
+  const int t = item[blockIdx.x];
+  if (t < 0) return;   // past the work list's last segment
+  const int s = blockIdx.x - first[t];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -184,8 +267,12 @@ composite_bwd_kernel(const float* __restrict__ attrs,
   const float oy = (float)((tc / tiles_x) * kTile);
   const int start = tile_start[t];
   const int count = tile_count[t];
-  const int n_chunks = allowed[t];
+  // This segment: chunks k0 .. n_chunks - 1 of the tile's allowed[t].
+  const int k0 = s * seg;
+  const int n_chunks = allowed[t] - k0 <= seg ? allowed[t] : k0 + seg;
   const int64_t slot0 = chunk0[t];
+  const float* c0 = s == 0 ? nullptr
+      : ckpt + ((int64_t)start / ((int64_t)seg * kChunk) + s) * kCkptCh * kNpix;
 
   // Pixels of this thread: column col, rows row0 .. row0 + 7. Warp w holds
   // the 16x16 square at (16 * (w & 1), 16 * (w >> 1)). Coordinates as K2
@@ -214,8 +301,16 @@ composite_bwd_kernel(const float* __restrict__ attrs,
     q[j] = (g0[j] * f[0 * kNpix] + g1[j] * f[1 * kNpix] +
             g2[j] * f[2 * kNpix] + g3[j] * f[3 * kNpix] +
             g4[j] * f[4 * kNpix]) + g[5 * kNpix] * f[5 * kNpix];
-    T[j] = 1.0f;
-    cw[j] = 0.0f;
+    if (c0 == nullptr) {
+      T[j] = 1.0f;
+      cw[j] = 0.0f;
+    } else {   // K2's state before chunk k0: T, and the prefix of c * w
+      const float* c = c0 + pix;
+      T[j] = c[0 * kNpix];
+      cw[j] = g0[j] * c[1 * kNpix] + g1[j] * c[2 * kNpix] +
+              g2[j] * c[3 * kNpix] + g3[j] * c[4 * kNpix] +
+              g4[j] * c[5 * kNpix];
+    }
   }
 
   // Whether this thread has a pair in chunk kk, and that pair's Gaussian id
@@ -232,16 +327,16 @@ composite_bwd_kernel(const float* __restrict__ attrs,
     if (gid < 0 || gid >= n_gauss) __trap();
   };
 
-  // Chunk 0's coefficients, and chunk 1's pair id in flight.
-  if (has_pair(0)) {
-    const int gid = pair_id(0);
+  // Chunk k0's coefficients, and chunk k0 + 1's pair id in flight.
+  if (has_pair(k0)) {
+    const int gid = pair_id(k0);
     check_id(gid);
     float4 rq[3];
     load_row(attrs, gid, rq);
-    coef[tid] = make_coef(rq, ox, oy);
+    coef[(k0 & 1) * kChunk + tid] = make_coef(rq, ox, oy);
   }
-  bool has_next = has_pair(1);
-  int gid_next = has_next ? pair_id(1) : 0;
+  bool has_next = has_pair(k0 + 1);
+  int gid_next = has_next ? pair_id(k0 + 1) : 0;
   __syncthreads();
 
   // The slot row of pair tid of chunk kk: the four warp partials added in
@@ -272,11 +367,11 @@ composite_bwd_kernel(const float* __restrict__ attrs,
     o[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   };
 
-  int k = 0;
+  int k = k0;
   while (k < n_chunks) {
     if (slot0 + k >= c_cap) __trap();
     const int buf = k & 1;
-    if (k > 0) flush(k - 1);
+    if (k > k0) flush(k - 1);
     // Loads for the next chunks, consumed after this chunk's sweep.
     float4 rq[3];
     const bool load = has_next;
@@ -359,46 +454,74 @@ composite_bwd_kernel(const float* __restrict__ attrs,
     for (int j = 0; j < kPix; ++j) live |= T[j] > kTransEps;
     if (!__syncthreads_or(live)) break;
   }
-  if (k > 0) flush(k - 1);
+  if (k > k0) flush(k - 1);
 }
 
 }  // namespace
 
+// Shared memory beyond 48 KB is opt-in; the largest carveout lets the most
+// blocks share an SM. Set once per device, not on every launch.
+static cudaError_t configure() {
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(composite_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(composite_bwd_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 100);
+    if (err != cudaSuccess) return err;
+    configured[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// ckpt NULL with seg 0: one segment a tile (the single sweep); else
+// segments of seg chunks from K2's checkpoints. work: n_tiles + n_items
+// int32 of scratch for the work list; n_items: at least the segments of all
+// tiles together (the list kernel traps otherwise).
 extern "C" int sage3d_composite_bwd(const void* attrs, const void* pair_gauss,
                                     const void* tile_start,
                                     const void* tile_count, const void* chunk0,
                                     const void* allowed, const void* fwd_out,
-                                    const void* gout, void* slots, int n_tiles,
+                                    const void* gout, const void* ckpt,
+                                    void* work, void* slots, int n_tiles,
                                     int tiles_x, int cam_tiles, int n_gauss,
-                                    int n_pairs, int c_cap, void* stream) {
+                                    int n_pairs, int c_cap, int seg,
+                                    int n_items, void* stream) {
   if (cam_tiles <= 0 || n_tiles % cam_tiles) return (int)cudaErrorInvalidValue;
-  if (n_tiles > 0) {
-    // Shared memory beyond 48 KB is opt-in; the largest carveout lets the
-    // most blocks share an SM. Set once per device, not on every launch.
-    static bool configured[kMaxDevices] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+  if (seg < 0 || (seg > 0) != (ckpt != nullptr) || n_items < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles > 0 && n_items > 0) {
+    const cudaError_t err = configure();
     if (err != cudaSuccess) return (int)err;
-    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-    if (!configured[dev]) {
-      err = cudaFuncSetAttribute(
-          composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)kSmemBytes);
-      if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(
-            composite_bwd_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-            100);
-      if (err != cudaSuccess) return (int)err;
-      configured[dev] = true;
-    }
-    composite_bwd_kernel<<<n_tiles, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+    const int seg_len = seg > 0 ? seg : INT_MAX;
+    int32_t* first = (int32_t*)work;
+    int32_t* item = first + n_tiles;
+    segment_list_kernel<<<1, kListThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)allowed, n_tiles, seg_len, n_items, first, item);
+    composite_bwd_kernel<<<n_items, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
         (const float*)attrs, (const int32_t*)pair_gauss,
         (const int32_t*)tile_start, (const int32_t*)tile_count,
         (const int32_t*)chunk0, (const int32_t*)allowed, (const float*)fwd_out,
-        (const float*)gout, (float*)slots, tiles_x, cam_tiles, n_gauss, n_pairs,
-        c_cap);
+        (const float*)gout, (const float*)ckpt, first, item, (float*)slots,
+        tiles_x, cam_tiles, n_gauss, n_pairs, c_cap, seg_len);
   }
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel one SM holds at once (its registers and shared
+// memory), from the occupancy calculator.
+extern "C" int sage3d_composite_bwd_occupancy(void* blocks) {
+  const cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      (int*)blocks, composite_bwd_kernel, kThreads, kSmemBytes);
 }
 
 // Registers per thread of the kernel, from cudaFuncGetAttributes.

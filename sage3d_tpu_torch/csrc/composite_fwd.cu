@@ -52,6 +52,18 @@
 // (camera b's Gaussian g at row b * N + g, which its pairs name): a block
 // takes its pixel origin from its tile's index within its camera, and
 // nothing else in the body depends on the camera.
+//
+// Segment checkpoints (under autograd only; composite_bwd.cu splits a tile's
+// walk into segments of `seg` chunks, one block each): at every chunk
+// boundary k that is a multiple of seg and that the walk goes past, each
+// pixel's T and its five accumulators (r, g, b, depth, alpha) before chunk
+// k, into checkpoint row start / (seg * 128) + k / seg. Two such boundaries,
+// of one tile or of two, lie at least seg * 128 pairs apart in the pair list
+// (a tile's pairs are one range, disjoint from the others'), so the rows are
+// distinct and the caller sizes the buffer from the pair count alone, with
+// no host read. These are stores of values the walk already holds: the
+// arithmetic, the images and k_end are those of the launch without them,
+// which is the same template with the stores compiled out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,6 +80,7 @@ constexpr bool kSkipMisses = false;       // a warp skips the blend of a pair
 constexpr int kChunk = 128;               // pairs per chunk
 constexpr int kNfeat = 16;                // floats per attribute row
 constexpr int kNch = 8;                   // r,g,b,depth,alpha,trans,best_w,best_id
+constexpr int kCkptCh = 6;                // checkpoint: T, r, g, b, depth, alpha
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTransEps = 1e-4f;
@@ -125,13 +138,15 @@ __device__ __forceinline__ void load_row(const float* __restrict__ attrs,
   q[2] = row[2];
 }
 
+template <bool kCkpt>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_fwd_kernel(const float* __restrict__ attrs,
                      const int32_t* __restrict__ pair_gauss,
                      const int32_t* __restrict__ tile_start,
                      const int32_t* __restrict__ tile_count,
                      float* __restrict__ out, int32_t* __restrict__ kend,
-                     int tiles_x, int cam_tiles, int n_gauss, int n_pairs) {
+                     float* __restrict__ ckpt, int seg, int tiles_x,
+                     int cam_tiles, int n_gauss, int n_pairs) {
   __shared__ Coef coef[2][kChunk];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -191,59 +206,84 @@ composite_fwd_kernel(const float* __restrict__ attrs,
   __syncthreads();
 
   int k = 0;
-  while (k < n_chunks) {
-    const int buf = k & 1;
-    // Loads for the next chunks, consumed after this chunk's sweep.
-    float4 rq[3];
-    const bool load = has_next;
-    if (load) {
-      check_id(gid_next);
-      load_row(attrs, gid_next, rq);
-    }
-    has_next = has_pair(k + 2);
-    if (has_next) gid_next = pair_id(k + 2);
+  // With checkpoints the walk stops at each seg-th chunk to store them and
+  // goes on; without, it is one loop to the end, as the inner loop alone.
+  int stop = kCkpt ? min(seg, n_chunks) : n_chunks;
+  bool stopped = false;   // the early stop
+  for (;;) {
+    while (k < stop) {
+      const int buf = k & 1;
+      // Loads for the next chunks, consumed after this chunk's sweep.
+      float4 rq[3];
+      const bool load = has_next;
+      if (load) {
+        check_id(gid_next);
+        load_row(attrs, gid_next, rq);
+      }
+      has_next = has_pair(k + 2);
+      if (has_next) gid_next = pair_id(k + 2);
 
-    const Coef* cf = coef[buf];
-    const int n_valid = min(count - k * kChunk, kChunk);
-    for (int i = 0; i < n_valid; ++i) {
-      const Coef e = cf[i];
-      const float t1 = e.w0 + e.wx * px;
-      const float t3 = e.ha * pxx;
-      float alpha[kPix];
-      bool hit = false;
+      const Coef* cf = coef[buf];
+      const int n_valid = min(count - k * kChunk, kChunk);
+      for (int i = 0; i < n_valid; ++i) {
+        const Coef e = cf[i];
+        const float t1 = e.w0 + e.wx * px;
+        const float t3 = e.ha * pxx;
+        float alpha[kPix];
+        bool hit = false;
 #pragma unroll
-      for (int j = 0; j < kPix; ++j) {
-        const float power = t1 + e.wy * py[j] - t3 - e.hc * pyy[j] -
-                            e.b * pxy[j];
-        alpha[j] = cut_alpha(
-            power, fminf(e.op * expf(fminf(power, 0.0f)), kAlphaMax));
-        hit |= alpha[j] > 0.0f;
+        for (int j = 0; j < kPix; ++j) {
+          const float power = t1 + e.wy * py[j] - t3 - e.hc * pyy[j] -
+                              e.b * pxy[j];
+          alpha[j] = cut_alpha(
+              power, fminf(e.op * expf(fminf(power, 0.0f)), kAlphaMax));
+          hit |= alpha[j] > 0.0f;
+        }
+        // A pair that leaves every pixel of the warp at alpha 0 changes
+        // nothing below (w = 0 adds exact zeros, T is multiplied by 1).
+        if (kSkipMisses && !__any_sync(kFull, hit)) continue;
+#pragma unroll
+        for (int j = 0; j < kPix; ++j) {
+          const float w = alpha[j] * T[j];
+          acc_r[j] += w * e.r;
+          acc_g[j] += w * e.g;
+          acc_b[j] += w * e.bl;
+          acc_d[j] += w * e.depth;
+          acc_a[j] += w;
+          const bool better = w > best_w[j];
+          best_w[j] = better ? w : best_w[j];
+          best_id[j] = better ? e.sem : best_id[j];
+          T[j] *= 1.0f - alpha[j];
+        }
       }
-      // A pair that leaves every pixel of the warp at alpha 0 changes
-      // nothing below (w = 0 adds exact zeros, T is multiplied by 1).
-      if (kSkipMisses && !__any_sync(kFull, hit)) continue;
+      if (load) coef[buf ^ 1][tid] = make_coef(rq, ox, oy);
+      ++k;
+      // The one barrier of the chunk: the early-stop vote, which also
+      // publishes the next chunk's coefficients.
+      bool live = false;
 #pragma unroll
-      for (int j = 0; j < kPix; ++j) {
-        const float w = alpha[j] * T[j];
-        acc_r[j] += w * e.r;
-        acc_g[j] += w * e.g;
-        acc_b[j] += w * e.bl;
-        acc_d[j] += w * e.depth;
-        acc_a[j] += w;
-        const bool better = w > best_w[j];
-        best_w[j] = better ? w : best_w[j];
-        best_id[j] = better ? e.sem : best_id[j];
-        T[j] *= 1.0f - alpha[j];
+      for (int j = 0; j < kPix; ++j) live |= T[j] > kTransEps;
+      if (!__syncthreads_or(live)) {
+        stopped = true;
+        break;
       }
     }
-    if (load) coef[buf ^ 1][tid] = make_coef(rq, ox, oy);
-    ++k;
-    // The one barrier of the chunk: the early-stop vote, which also
-    // publishes the next chunk's coefficients.
-    bool live = false;
+    if (!kCkpt || stopped || k >= n_chunks) break;
+    // Chunk k = stop, a multiple of seg: the state before it. Row
+    // (start + 128 k) / (128 seg) is start / (128 seg) + k / seg.
+    float* c = ckpt + (size_t)((start + k * kChunk) / (seg * kChunk))
+                          * kCkptCh * kNpix + row0 * kTile + col;
 #pragma unroll
-    for (int j = 0; j < kPix; ++j) live |= T[j] > kTransEps;
-    if (!__syncthreads_or(live)) break;
+    for (int j = 0; j < kPix; ++j) {
+      float* cj = c + j * kTile;
+      cj[0 * kNpix] = T[j];
+      cj[1 * kNpix] = acc_r[j];
+      cj[2 * kNpix] = acc_g[j];
+      cj[3 * kNpix] = acc_b[j];
+      cj[4 * kNpix] = acc_d[j];
+      cj[5 * kNpix] = acc_a[j];
+    }
+    stop = min(k + seg, n_chunks);
   }
 
   float* o = out + (size_t)t * kNch * kNpix + row0 * kTile + col;
@@ -264,18 +304,22 @@ composite_fwd_kernel(const float* __restrict__ attrs,
 
 }  // namespace
 
+// ckpt NULL: no checkpoints (seg unused); else seg > 0 chunks.
 extern "C" int sage3d_composite_fwd(const void* attrs, const void* pair_gauss,
                                     const void* tile_start,
                                     const void* tile_count, void* out,
-                                    void* kend, int n_tiles, int tiles_x,
-                                    int cam_tiles, int n_gauss, int n_pairs,
-                                    void* stream) {
+                                    void* kend, void* ckpt, int seg,
+                                    int n_tiles, int tiles_x, int cam_tiles,
+                                    int n_gauss, int n_pairs, void* stream) {
   if (cam_tiles <= 0 || n_tiles % cam_tiles) return (int)cudaErrorInvalidValue;
+  if (ckpt && seg <= 0) return (int)cudaErrorInvalidValue;
   if (n_tiles > 0) {
-    composite_fwd_kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+    auto kernel = ckpt ? composite_fwd_kernel<true> : composite_fwd_kernel<false>;
+    kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)attrs, (const int32_t*)pair_gauss,
         (const int32_t*)tile_start, (const int32_t*)tile_count, (float*)out,
-        (int32_t*)kend, tiles_x, cam_tiles, n_gauss, n_pairs);
+        (int32_t*)kend, (float*)ckpt, seg, tiles_x, cam_tiles, n_gauss,
+        n_pairs);
   }
   return (int)cudaGetLastError();
 }

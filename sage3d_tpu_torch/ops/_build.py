@@ -45,19 +45,21 @@ KERNELS = {
         "sage3d_emit_tile_pairs": [_P, _P, _I, _L, _I, _I, _P, _P, _P, _P],
     }),
     "composite_fwd": ("composite_fwd.cu", {
-        # attrs, pair_gauss, tile_start, tile_count, out, kend, n_tiles,
-        # tiles_x, cam_tiles, n_gauss, n_pairs, stream
-        "sage3d_composite_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _P],
+        # attrs, pair_gauss, tile_start, tile_count, out, kend, ckpt (or
+        # NULL), seg, n_tiles, tiles_x, cam_tiles, n_gauss, n_pairs, stream
+        "sage3d_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _P],
     }),
     "composite_bwd": ("composite_bwd.cu", {
         # attrs, pair_gauss, tile_start, tile_count, chunk0, allowed, fwd_out,
-        # gout, slots, n_tiles, tiles_x, cam_tiles, n_gauss, n_pairs, c_cap,
-        # stream
-        "sage3d_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _I, _P],
+        # gout, ckpt (or NULL), work, slots, n_tiles, tiles_x, cam_tiles,
+        # n_gauss, n_pairs, c_cap, seg, n_items, stream
+        "sage3d_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
         # int* registers
         "sage3d_composite_bwd_regs": [ctypes.POINTER(ctypes.c_int)],
+        # int* blocks an SM holds
+        "sage3d_composite_bwd_occupancy": [ctypes.POINTER(ctypes.c_int)],
     }),
     "composite_anatomy": ("composite_anatomy.cu", {
         # attrs, pair_gauss, tile_start, tile_count, out, n_tiles, tiles_x,

@@ -34,6 +34,16 @@ the cameras' gradients. Each camera's images, ``k_end`` and gradient rows
 are bitwise what it gives alone; budgets (``pair_capacity``,
 ``tile_capacity``, ``grad_capacity``) apply per camera.
 
+Under autograd a dense tile's backward walk is split into segments of
+``seg`` chunks, one K3 block each, so that a frame of few dense tiles (a
+mesh rank's band) still fills the card: K2 writes each pixel's
+transmittance and accumulators at every ``seg``-th chunk boundary
+(``composite_fwd(..., seg=)``), and K3 starts each segment from them.
+``segment_chunks`` picks ``seg`` from the pair count and the card's
+resident K3 blocks. Past a tile's first segment the rows differ from the
+single sweep's by float32 rounding of the running prefix of c * w, which
+restarts from K2's accumulators (``csrc/composite_bwd.cu``).
+
 ``composite_fwd_plain`` and ``composite_bwd_plain`` are the kernels' plain
 PyTorch versions; the wrappers take them only for CPU tensors.
 """
@@ -41,11 +51,11 @@ PyTorch versions; the wrappers take them only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count as add_count, span
 from . import _build
 from .binning import TILE_H, TILE_W, TileBins
 from .projection import ALPHA_MAX, ALPHA_MIN, ProjectedGaussians
@@ -67,6 +77,9 @@ TRANS_EPS = 1e-4        # early-termination threshold, per tile
 GRAD_SORT_DEFAULT = "f32"   # the backward's sort payload: exact f32
 GRAD_SORT_MODES = ("f32", "f16", "bf16")
 F16_SCALE = 30000.0     # "f16": each channel scaled to this absmax before the cast
+CKPT_CH = 6             # a segment checkpoint: T, r, g, b, depth, alpha a pixel
+SPLIT_WAVES = 8         # K3 segments: about this many waves of the card's
+                        # resident blocks over a frame's chunks
 
 
 def _pixel_centers(dev):
@@ -111,18 +124,32 @@ def _origin(tid: torch.Tensor, tiles_x: int, cam_tiles: int):
             ((tc // tiles_x) * TILE_H).to(torch.float32)[:, None, None])
 
 
+def checkpoint_rows(n_pairs: int, seg: int) -> int:
+    """Rows of the segment checkpoint buffer of a pair list of ``n_pairs``
+    pairs with segments of ``seg`` chunks: tile t's checkpoint of chunk k
+    (a multiple of ``seg``) is row ``tile_start[t] // (seg * CHUNK) + k //
+    seg``, distinct for every tile and k since a tile's pairs are one range
+    of the list."""
+    return max(1, -(-n_pairs // (seg * CHUNK)))
+
+
 def composite_fwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
                         tiles_x: int, tile_batch: int = 128,
-                        cam_tiles: int = 0):
+                        cam_tiles: int = 0, seg: int = 0):
     """Plain PyTorch version of K2: the same chunk walk, alpha form, blend and
     per-tile early termination, vectorized over tiles in batches. Returns
     (out (T, NCH, NPIX) float32, k_end (T,) int32). ``cam_tiles``: tiles of
-    one camera of a batch (0: all T)."""
+    one camera of a batch (0: all T). ``seg`` > 0: also the segment
+    checkpoints (``checkpoint_rows`` x CKPT_CH x NPIX float32), each tile's
+    T and accumulators before every chunk k it walks with k a positive
+    multiple of ``seg``; other rows zero."""
     dev = attrs.device
     n_tiles = tile_start.shape[0]
     cam_tiles = cam_tiles or max(n_tiles, 1)
     px, py = _pixel_centers(dev)
+    ckpt = (torch.zeros((checkpoint_rows(pair_gauss.shape[0], seg), CKPT_CH,
+                         NPIX), device=dev) if seg else None)
     outs, kends = [], []
     for t0 in range(0, n_tiles, tile_batch):
         tid = torch.arange(t0, min(t0 + tile_batch, n_tiles), device=dev)
@@ -141,6 +168,10 @@ def composite_fwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
             active = active & (k < n_chunks) & (trans.amax(-1) > TRANS_EPS)
             if not bool(active.any()):
                 break
+            if seg and k and k % seg == 0:
+                rows = start // (seg * CHUNK) + k // seg
+                ckpt[rows[active]] = torch.cat([trans[:, None], acc],
+                                               1)[active]
             co, valid, alpha, _ = _plain_chunk(attrs, pair_gauss, start,
                                                count, k, ox, oy, px, py)
             # T before each pair: a running product seeded with the tile's
@@ -163,9 +194,11 @@ def composite_fwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                                best_id[:, None]], 1))
         kends.append(k_end)
     if not outs:
-        return (torch.zeros((0, NCH, NPIX), device=dev),
-                torch.zeros((0,), dtype=torch.int32, device=dev))
-    return torch.cat(outs), torch.cat(kends)
+        out = (torch.zeros((0, NCH, NPIX), device=dev),
+               torch.zeros((0,), dtype=torch.int32, device=dev))
+    else:
+        out = torch.cat(outs), torch.cat(kends)
+    return out + (ckpt,) if seg else out
 
 
 def _cam_tiles(cam_tiles: int, n_tiles: int) -> int:
@@ -179,8 +212,11 @@ def _cam_tiles(cam_tiles: int, n_tiles: int) -> int:
 
 def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
-                  tiles_x: int, cam_tiles: int = 0):
-    """K2 wrapper: (out (T, NCH, NPIX) float32, k_end (T,) int32).
+                  tiles_x: int, cam_tiles: int = 0, seg: int = 0):
+    """K2 wrapper: (out (T, NCH, NPIX) float32, k_end (T,) int32), and
+    with ``seg`` > 0 chunks the segment checkpoints K3 splits its walk with
+    (``composite_fwd_plain``; rows the walk never reaches are not written):
+    (out, k_end, ckpt). ``out`` and ``k_end`` are the same either way.
 
     ``attrs`` (N, NFEAT) float32, 16-byte aligned (the kernel reads its rows
     as float4; checked on every device); ``pair_gauss`` (P,) int32 with
@@ -203,9 +239,10 @@ def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
         raise ValueError("composite_fwd: inputs on different devices")
     n_tiles = tile_start.shape[0]
     cam_tiles = _cam_tiles(cam_tiles, n_tiles)
+    seg = _check_seg(seg)
     if attrs.device.type == "cpu":
         return composite_fwd_plain(attrs, pair_gauss, tile_start, tile_count,
-                                   tiles_x, cam_tiles=cam_tiles)
+                                   tiles_x, cam_tiles=cam_tiles, seg=seg)
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_fwd: unsupported device {attrs.device}")
     if not all(x.is_contiguous() for x in tensors):
@@ -215,17 +252,64 @@ def composite_fwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     out = torch.empty((n_tiles, NCH, NPIX), dtype=torch.float32,
                       device=attrs.device)
     kend = torch.empty((n_tiles,), dtype=torch.int32, device=attrs.device)
+    ckpt = (torch.empty((checkpoint_rows(pair_gauss.shape[0], seg), CKPT_CH,
+                         NPIX), dtype=torch.float32, device=attrs.device)
+            if seg else None)
     err = _build.launch(
         _build.load("composite_fwd").sage3d_composite_fwd, attrs.device,
         attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
-        tile_count.data_ptr(), out.data_ptr(), kend.data_ptr(), n_tiles,
-        tiles_x, cam_tiles, attrs.shape[0], pair_gauss.shape[0])
+        tile_count.data_ptr(), out.data_ptr(), kend.data_ptr(),
+        ckpt.data_ptr() if seg else None, seg, n_tiles, tiles_x, cam_tiles,
+        attrs.shape[0], pair_gauss.shape[0])
     _build.check(err, "composite_fwd")
     composite_fwd.launches += 1
-    return out, kend
+    return (out, kend, ckpt) if seg else (out, kend)
 
 
 composite_fwd.launches = 0
+
+
+def _check_seg(seg) -> int:
+    seg = int(seg)
+    if seg < 0 or seg >= 2**31 // CHUNK:
+        raise ValueError(f"segment length {seg} chunks: must be 0 (no "
+                         f"segments) or in [1, {2**31 // CHUNK})")
+    return seg
+
+
+_RESIDENT: Dict[int, int] = {}   # device index -> K3 blocks the card holds
+
+
+def resident_blocks(device: torch.device) -> int:
+    """K3 blocks the card holds at once: its SMs times the blocks an SM
+    holds (the occupancy calculator, for K3's registers and shared
+    memory); card only, asked once per device."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _RESIDENT:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _build.check(_build.load("composite_bwd")
+                         .sage3d_composite_bwd_occupancy(ctypes.byref(per_sm)),
+                         "composite_bwd_occupancy")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _RESIDENT[index] = sms * max(per_sm.value, 1)
+    return _RESIDENT[index]
+
+
+def segment_chunks(n_pairs: int, device: torch.device) -> int:
+    """The chunks of one K3 segment for a frame of ``n_pairs`` listed pairs
+    on ``device``: the list's chunks over ``SPLIT_WAVES`` waves of the card's
+    resident K3 blocks, so that a frame of few dense tiles gives enough
+    blocks to fill the card and long walks end in short pieces; 0 (one
+    segment a tile) on the CPU, or where one segment would hold the whole
+    list. From shapes alone: it does not read the device, and a tight
+    ``grad_capacity`` gets the segments of the safe bound."""
+    if device.type != "cuda":
+        return 0
+    chunks = -(-n_pairs // CHUNK)
+    seg = max(1, -(-chunks // (SPLIT_WAVES * resident_blocks(device))))
+    return seg if seg < chunks else 0
 
 
 def gid_split(ids: torch.Tensor):
@@ -263,13 +347,18 @@ def composite_bwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                         chunk0: torch.Tensor, allowed: torch.Tensor,
                         fwd_out: torch.Tensor, gout: torch.Tensor, c_cap: int,
                         tiles_x: int, tile_batch: int = 32,
-                        cam_tiles: int = 0) -> torch.Tensor:
+                        cam_tiles: int = 0, ckpt: torch.Tensor = None,
+                        seg: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K3, vectorized over tiles in batches: the
     forward replayed as ``composite_fwd_plain`` computes it, the ten gradient
     channels per pair summed over the tile's pixels, and row
     ``(chunk0[t] + k) * CHUNK + i`` of ``_slot_buffer`` written for every
     pair of the first ``allowed[t]`` chunks (the pair's Gaussian id in
-    GID_COL and SLOT_HI_COL, from ``pair_gauss``)."""
+    GID_COL and SLOT_HI_COL, from ``pair_gauss``). With ``seg`` > 0 the walk
+    is K3's segments: at every chunk k, a positive multiple of ``seg``, the
+    tile's T and running prefix of c * w start again from checkpoint
+    ``ckpt`` (``composite_fwd_plain``) as K3's block of that segment starts
+    them."""
     dev = attrs.device
     n_tiles = tile_start.shape[0]
     cam_tiles = cam_tiles or max(n_tiles, 1)
@@ -293,6 +382,15 @@ def composite_bwd_plain(attrs: torch.Tensor, pair_gauss: torch.Tensor,
         prefix = torch.zeros((tid.shape[0], 1, NPIX), device=dev)
         for k in range(int(allow.max()) if tid.shape[0] else 0):
             act = k < allow
+            if seg and k and k % seg == 0:
+                row = torch.clamp(start // (seg * CHUNK) + k // seg,
+                                  max=ckpt.shape[0] - 1)  # valid where act
+                c = ckpt[row][:, :, None, :]
+                trans = torch.where(act[:, None], c[:, 0, 0], trans)
+                prefix = torch.where(
+                    act[:, None, None],
+                    g0 * c[:, 1] + g1 * c[:, 2] + g2 * c[:, 3] + g3 * c[:, 4]
+                    + g4 * c[:, 5], prefix)
             co, valid, alpha, raw = _plain_chunk(attrs, pair_gauss, start,
                                                  count, k, ox, oy, px, py)
             idx = torch.clamp(start[:, None] + k * CHUNK + lanes, 0,
@@ -336,7 +434,8 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
                   chunk0: torch.Tensor, allowed: torch.Tensor,
                   fwd_out: torch.Tensor, gout: torch.Tensor, c_cap: int,
-                  tiles_x: int, cam_tiles: int = 0) -> torch.Tensor:
+                  tiles_x: int, cam_tiles: int = 0,
+                  ckpt: torch.Tensor = None, seg: int = 0) -> torch.Tensor:
     """K3 wrapper: the (c_cap * CHUNK, NFEAT) float32 slot buffer of per-pair
     gradient rows (channels 0..NGRAD-1; the Gaussian id's low 24 bits in
     GID_COL and its high bits in SLOT_HI_COL, ``slot_ids``). Rows no pair
@@ -347,8 +446,14 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     caller keeps those inside ``[0, c_cap)`` and ``allowed[t]`` within the
     forward's ``k_end[t]``. ``fwd_out``/``gout`` are (T, NCH, NPIX) float32:
     K2's output and its cotangent. ``cam_tiles`` as for ``composite_fwd``:
-    a camera batch is one launch. A CPU tensor takes the plain version; a
-    CUDA tensor launches ``csrc/composite_bwd.cu``."""
+    a camera batch is one launch. ``seg`` > 0: each tile's walk in segments
+    of ``seg`` chunks, a block each, started from ``ckpt``, the checkpoints
+    of ``composite_fwd(..., seg=seg)``; 0: a block a tile. A CPU tensor
+    takes the plain version; a CUDA tensor launches
+    ``csrc/composite_bwd.cu``. Counts ``composite.bwd_tiles`` and
+    ``composite.bwd_blocks``, the blocks launched: an upper bound of the
+    (tile, segment) work items, taken from host-known sizes; the blocks
+    past the work list's total exit at once."""
     ints = (pair_gauss, tile_start, tile_count, chunk0, allowed)
     if attrs.dim() != 2 or attrs.shape[1] != NFEAT or attrs.dtype != torch.float32:
         raise ValueError(f"attrs must be (N, {NFEAT}) float32")
@@ -362,14 +467,26 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
         if x.shape != (n_tiles, NCH, NPIX) or x.dtype != torch.float32:
             raise ValueError(f"fwd_out and gout must be (T, {NCH}, {NPIX}) "
                              "float32")
-    tensors = (attrs, *ints, fwd_out, gout)
+    seg = _check_seg(seg)
+    if seg and (ckpt is None or ckpt.dtype != torch.float32 or ckpt.shape != (
+            checkpoint_rows(pair_gauss.shape[0], seg), CKPT_CH, NPIX)):
+        raise ValueError("composite_bwd: segments need the checkpoints of "
+                         "composite_fwd(..., seg=seg)")
+    tensors = (attrs, *ints, fwd_out, gout) + ((ckpt,) if seg else ())
     if any(x.device != attrs.device for x in tensors):
         raise ValueError("composite_bwd: inputs on different devices")
     cam_tiles = _cam_tiles(cam_tiles, n_tiles)
+    # work items: at most a segment a tile plus one every seg chunks of the
+    # walks, which the buffer's c_cap slots and the list's chunks bound
+    n_items = n_tiles + (-(-min(c_cap, -(-pair_gauss.shape[0] // CHUNK)
+                                + n_tiles) // seg) if seg else 0)
+    add_count("composite.bwd_tiles", n_tiles)
+    add_count("composite.bwd_blocks", n_items)
     if attrs.device.type == "cpu":
         return composite_bwd_plain(attrs, pair_gauss, tile_start, tile_count,
                                    chunk0, allowed, fwd_out, gout, c_cap,
-                                   tiles_x, cam_tiles=cam_tiles)
+                                   tiles_x, cam_tiles=cam_tiles, ckpt=ckpt,
+                                   seg=seg)
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_bwd: unsupported device {attrs.device}")
     if not all(x.is_contiguous() for x in tensors):
@@ -377,15 +494,19 @@ def composite_bwd(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     if attrs.data_ptr() % 16:
         raise ValueError("composite_bwd: attrs must be 16-byte aligned (the "
                          "kernel reads its rows as float4)")
-    if max(attrs.shape[0], pair_gauss.shape[0], n_tiles, c_cap) >= 2**31:
+    if max(attrs.shape[0], pair_gauss.shape[0], n_tiles + n_items,
+           c_cap) >= 2**31:
         raise ValueError("composite_bwd: sizes must fit int32")
     slots = _slot_buffer(c_cap, attrs.shape[0], attrs.device)
+    work = torch.empty((n_tiles + n_items,), dtype=torch.int32,
+                       device=attrs.device)
     err = _build.launch(
         _build.load("composite_bwd").sage3d_composite_bwd, attrs.device,
         attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
         tile_count.data_ptr(), chunk0.data_ptr(), allowed.data_ptr(),
-        fwd_out.data_ptr(), gout.data_ptr(), slots.data_ptr(), n_tiles,
-        tiles_x, cam_tiles, attrs.shape[0], pair_gauss.shape[0], c_cap)
+        fwd_out.data_ptr(), gout.data_ptr(), ckpt.data_ptr() if seg else None,
+        work.data_ptr(), slots.data_ptr(), n_tiles, tiles_x, cam_tiles,
+        attrs.shape[0], pair_gauss.shape[0], c_cap, seg, n_items)
     _build.check(err, "composite_bwd")
     composite_bwd.launches += 1
     return slots
@@ -424,7 +545,8 @@ def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                   kend: torch.Tensor, fwd_out: torch.Tensor,
                   gout: torch.Tensor, tiles_x: int, c_cap: int,
                   grad_sort: str = GRAD_SORT_DEFAULT, cam_tiles: int = 0,
-                  groups: int = 1) -> torch.Tensor:
+                  groups: int = 1, ckpt: torch.Tensor = None,
+                  seg: int = 0) -> torch.Tensor:
     """The backward of ``attrs -> out``: d_attrs (N, NFEAT), columns NGRAD..
     zero. K3 fills the slot buffer; a stable sort groups its rows by the
     Gaussian id they carry; K4 sums each Gaussian's rows. The rows no pair
@@ -432,7 +554,9 @@ def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     of every Gaussian keep their order, so a larger ``c_cap`` changes no
     bit of the result. Nothing waits for the device. A camera batch
     (``cam_tiles``, N = B·N rows) is one K3 and one K4 launch; its buffer is
-    ``groups`` runs of ``c_cap`` slots (``slot_ranges``).
+    ``groups`` runs of ``c_cap`` slots (``slot_ranges``). ``ckpt`` and
+    ``seg``: K3's segments (``composite_bwd``); they do not depend on
+    ``c_cap``, so neither does the result.
 
     ``grad_sort`` picks the sort's payload: ``"f32"`` (exact, the default)
     as K3 wrote it; ``"f16"`` scales each channel to an absmax of 30000,
@@ -445,7 +569,7 @@ def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
     chunk0, allowed = slot_ranges(kend, c_cap, groups)
     slots = composite_bwd(attrs, pair_gauss, tile_start, tile_count, chunk0,
                           allowed, fwd_out, gout, groups * c_cap, tiles_x,
-                          cam_tiles)
+                          cam_tiles, ckpt, seg)
     n = attrs.shape[0]
     ids_sorted, perm = torch.sort(slot_ids(slots, n), stable=True)
     grads = slots[:, :NGRAD]
@@ -465,48 +589,58 @@ def composite_vjp(attrs: torch.Tensor, pair_gauss: torch.Tensor,
 
 class _AttrComposite(torch.autograd.Function):
     """``attrs -> (out, k_end)`` through K2, with the analytic backward of
-    ``composite_vjp``: the JAX package's ``custom_vjp`` boundary."""
+    ``composite_vjp``: the JAX package's ``custom_vjp`` boundary. ``seg`` >
+    0: K2 also writes the checkpoints of K3's segments."""
 
     @staticmethod
     def forward(ctx, attrs, pair_gauss, tile_start, tile_count, tiles_x,
-                c_cap, grad_sort, cam_tiles, groups):
-        out, kend = composite_fwd(attrs, pair_gauss, tile_start, tile_count,
-                                  tiles_x, cam_tiles)
+                c_cap, grad_sort, cam_tiles, groups, seg):
+        out, kend, *ckpt = composite_fwd(attrs, pair_gauss, tile_start,
+                                         tile_count, tiles_x, cam_tiles,
+                                         seg=seg)
         ctx.mark_non_differentiable(kend)
         ctx.save_for_backward(attrs, pair_gauss, tile_start, tile_count, kend,
-                              out)
+                              out, *ckpt)
         ctx.tiles_x, ctx.c_cap, ctx.grad_sort = tiles_x, c_cap, grad_sort
-        ctx.cam_tiles, ctx.groups = cam_tiles, groups
+        ctx.cam_tiles, ctx.groups, ctx.seg = cam_tiles, groups, seg
         return out, kend
 
     @staticmethod
     def backward(ctx, gout, _gkend):
         with span("composite.backward"):
-            attrs, pair_gauss, tile_start, tile_count, kend, out = \
+            attrs, pair_gauss, tile_start, tile_count, kend, out, *ckpt = \
                 ctx.saved_tensors
             d_attrs = composite_vjp(attrs, pair_gauss, tile_start,
                                     tile_count, kend, out, gout.contiguous(),
                                     ctx.tiles_x, ctx.c_cap, ctx.grad_sort,
-                                    ctx.cam_tiles, ctx.groups)
-        return d_attrs, None, None, None, None, None, None, None, None
+                                    ctx.cam_tiles, ctx.groups,
+                                    ckpt=ckpt[0] if ckpt else None,
+                                    seg=ctx.seg)
+        return (d_attrs,) + (None,) * 9
 
 
 def attr_composite(attrs: torch.Tensor, pair_gauss: torch.Tensor,
                    tile_start: torch.Tensor, tile_count: torch.Tensor,
                    tiles_x: int, c_cap: int,
                    grad_sort: str = GRAD_SORT_DEFAULT, cam_tiles: int = 0,
-                   groups: int = 1):
+                   groups: int = 1, _seg: Optional[int] = None):
     """Differentiable ``attrs -> (out (T, NCH, NPIX), k_end (T,))``: K2
     forward; backward through K3, the sort and K4 into a gradient buffer of
     ``groups`` runs of ``c_cap`` chunk slots (``slot_ranges``).
     ``cam_tiles``: the tiles of one camera of a batch (0: one camera).
-    ``k_end`` carries no gradient."""
+    ``k_end`` carries no gradient. Where a gradient is wanted, K3 walks
+    segments of ``segment_chunks`` chunks (``_seg``, for tests: that many,
+    0 for a block a tile); without one K2 writes no checkpoint."""
     if grad_sort not in GRAD_SORT_MODES:
         raise ValueError(f"unknown grad_sort mode: {grad_sort}")
+    seg = 0
+    if torch.is_grad_enabled() and attrs.requires_grad:
+        seg = (segment_chunks(pair_gauss.shape[0], attrs.device)
+               if _seg is None else _seg)
     return _AttrComposite.apply(attrs, pair_gauss, tile_start, tile_count,
                                 tiles_x, int(c_cap), grad_sort,
                                 _cam_tiles(cam_tiles, tile_start.shape[0]),
-                                int(groups))
+                                int(groups), int(seg))
 
 
 def attribute_table(proj: ProjectedGaussians,

@@ -232,6 +232,187 @@ def test_tight_grad_capacity_is_bitwise_on_the_card():
     assert composite_cuda.composite_bwd_registers() > 0
 
 
+def _split_frame(kind: str, n_cams: int = 1):
+    """K2's and K3's inputs where K3 walks segments: "band", a 1152x224 band
+    of the 1M room with its Gaussians made faint, so that its 252 tiles walk
+    long, as a mesh rank's band of an aerial site does; "room", the
+    1920x1080 frame of the 1M room (chip_smoke's frame a), ``n_cams``
+    cameras in one batch. The K2 arguments, cam_tiles, K2's output and
+    k_end, a seeded cotangent and the safe gradient capacity."""
+    from sage3d_tpu_torch.renderer.camera import stack_cameras
+    scene = synthetic_room(1_000_000, seed=0, device="cuda")
+    poses = [([0.0, -6.0, 1.5], [0.0, 1.0, -0.05]),
+             ([0.5, -5.5, 1.4], [0.1, 1.0, -0.05])][:n_cams]
+    if kind == "band":
+        scene = scene._replace(opacity_logits=scene.opacity_logits - 5.0)
+        cams = [make_camera(*p, 1152, 224, focal_mm=8.4, device="cuda")
+                for p in poses]
+    else:
+        cams = [make_camera(*p, 1920, 1080, focal_mm=14.0, device="cuda")
+                for p in poses]
+    cam = cams[0] if n_cams == 1 else stack_cameras(cams)
+    bk = trender.budget_kwargs(trender.autotune_poses(scene,
+                                                      stack_cameras(cams)))
+    with torch.no_grad():
+        proj = project_gaussians(scene, cam)
+        bins = binning.bin_gaussians(
+            proj, cams[0].width, cams[0].height,
+            **{k: bk[k] for k in binning.EMIT_BUDGET_KEYS})
+    attrs = composite_cuda.attribute_table(proj, scene.semantic_ids)
+    args = (attrs, *composite_cuda.trim_to_capacity(bins)[:3], bins.tiles_x)
+    cam_tiles = bins.tiles_x * bins.tiles_y
+    out, kend = composite_cuda.composite_fwd(*args, cam_tiles=cam_tiles)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    gout = torch.randn(out.shape, generator=gen, device="cuda")
+    safe = args[1].shape[0] // composite_cuda.CHUNK + n_cams * cam_tiles
+    return args, cam_tiles, out, kend, gout, safe
+
+
+def _d_attrs_f64(args, cam_tiles, kend, gout, tile_batch=16):
+    """d_attrs (N, NGRAD) in float64 of the chunks K2 walked: alpha as the
+    kernels decide it, in float32 (``_plain_chunk``), and everything after
+    it, the forward's sums and the backward's, in float64."""
+    cc = composite_cuda
+    attrs, pg, start, count, tiles_x = args
+    dev, f64 = attrs.device, torch.float64
+    px, py = cc._pixel_centers(dev)
+    lanes = torch.arange(cc.CHUNK, device=dev)
+    d = torch.zeros((attrs.shape[0], cc.NGRAD), dtype=f64, device=dev)
+    for t0 in range(0, start.shape[0], tile_batch):
+        tid = torch.arange(t0, min(t0 + tile_batch, start.shape[0]),
+                           device=dev)
+        st, cnt, allow = start[tid].long(), count[tid].long(), kend[tid].long()
+        ox, oy = cc._origin(tid, tiles_x, cam_tiles)
+
+        def walk():
+            trans = torch.ones((tid.shape[0], cc.NPIX), dtype=f64, device=dev)
+            for k in range(int(allow.max())):
+                co, valid, alpha, raw = cc._plain_chunk(
+                    attrs, pg, st, cnt, k, ox, oy, px, py)
+                a = alpha.double()
+                t_run = torch.cumprod(torch.cat([trans[:, None], 1.0 - a], 1), 1)
+                yield k < allow, co.double(), valid, alpha, raw, a, t_run
+                trans = torch.where((k < allow)[:, None], t_run[:, -1], trans)
+
+        acc = torch.zeros((tid.shape[0], 6, cc.NPIX), dtype=f64, device=dev)
+        for act, co, _, _, _, a, t_run in walk():
+            w = a * t_run[:, :-1]
+            new = torch.stack([(w * co[..., ch:ch + 1]).sum(1)
+                               for ch in (6, 7, 8, 9)] + [w.sum(1)], 1)
+            acc[:, :5] += torch.where(act[:, None, None], new, 0.0)
+            acc[:, 5] = torch.where(act[:, None], t_run[:, -1], acc[:, 5])
+        acc[:, 5] = torch.where(allow[:, None] > 0, acc[:, 5], 1.0)
+        g = gout[tid].double()[:, :, None, :]
+        f = acc[:, :, None, :]
+        suffix = sum(g[:, ch] * f[:, ch] for ch in range(6))
+        prefix = torch.zeros((tid.shape[0], 1, cc.NPIX), dtype=f64, device=dev)
+        for k, (act, co, valid, alpha, raw, a, t_run) in enumerate(walk()):
+            t_at = t_run[:, :-1]
+            w = a * t_at
+            c = sum(co[..., 6 + ch:7 + ch] * g[:, ch] for ch in range(4)) \
+                + g[:, 4]
+            incl = prefix + torch.cumsum(c * w, 1)
+            dal = c * t_at - (suffix - incl) / (1.0 - a)
+            dp = torch.where((alpha > 0) & (raw <= cc.ALPHA_MAX), dal, 0.0) * a
+            dx = px - (co[..., 3:4] - ox)
+            dy = py - (co[..., 4:5] - oy)
+            op = co[..., 5]
+            rows = torch.stack([
+                (dp * (-0.5 * dx * dx)).sum(-1), (dp * (-dx * dy)).sum(-1),
+                (dp * (-0.5 * dy * dy)).sum(-1),
+                (dp * (co[..., 0:1] * dx + co[..., 1:2] * dy)).sum(-1),
+                (dp * (co[..., 2:3] * dy + co[..., 1:2] * dx)).sum(-1),
+                dp.sum(-1) / torch.where(op > 0, op, 1.0),
+                *((g[:, ch] * w).sum(-1) for ch in range(4))], -1)
+            keep = act[:, None] & valid
+            gid = pg[torch.clamp(st[:, None] + k * cc.CHUNK + lanes,
+                                 max=pg.shape[0] - 1)].long()
+            d.index_add_(0, gid[keep], rows[keep])
+            prefix = torch.where(act[:, None, None], incl[:, -1:], prefix)
+    return d
+
+
+@pytest.mark.parametrize("kind,n_cams", [("band", 1), ("room", 1),
+                                         ("room", 2)])
+def test_split_backward_matches_one_segment_a_tile(kind, n_cams):
+    """K3 in segments from K2's checkpoints, at the segment length the card
+    picks and at a quarter of the longest walk, beside K3 at one segment a
+    tile, both against d_attrs of the same walk summed in float64: every
+    channel within 2e-4 of its max (K3's tolerance against its plain twin),
+    and in each channel the split no further from float64 than 2.5e-5 or
+    the single sweep is in that channel, with a quarter for noise (on a
+    band's walks of 200-500 chunks the single sweep's running prefix is
+    itself up to 1.2e-4 off; each segment restarts it from K2's
+    accumulators). K2's images and k_end are the same
+    with the checkpoints; a tight grad_capacity and a second run are
+    bitwise."""
+    _need_card("K2's checkpoints and K3's segments")
+    args, cam_tiles, out, kend, gout, safe = _split_frame(kind, n_cams)
+    cc = composite_cuda
+    vjp_args = (*args[:4], kend, out, gout, args[4])
+    ref = _d_attrs_f64(args, cam_tiles, kend, gout)
+    scale = ref.abs().amax(0)
+    assert bool((scale > 0).all())
+
+    def errs(d):
+        return ((d[:, :cc.NGRAD].double() - ref).abs().amax(0)
+                / scale).tolist()
+
+    one = errs(cc.composite_vjp(*vjp_args, safe, cam_tiles=cam_tiles))
+    longest = int(kend.max())
+    auto = cc.segment_chunks(args[1].shape[0], args[0].device)
+    segs = {max(1, longest // 4)} | ({auto} if 0 < auto < longest else set())
+    if kind == "band":
+        assert 0 < auto < longest     # the card's own pick splits a band
+    for seg in sorted(segs):
+        out_s, kend_s, ckpt = cc.composite_fwd(*args, cam_tiles=cam_tiles,
+                                               seg=seg)
+        assert torch.equal(out_s, out) and torch.equal(kend_s, kend)
+        before = cc.composite_bwd.launches
+        got, tight, again = (
+            cc.composite_vjp(*vjp_args, c_cap, cam_tiles=cam_tiles,
+                             ckpt=ckpt, seg=seg)
+            for c_cap in (safe, int(kend.sum()), safe))
+        torch.cuda.synchronize()
+        assert cc.composite_bwd.launches == before + 3
+        assert torch.equal(got, tight) and torch.equal(got, again), seg
+        assert float(got[:, cc.NGRAD:].abs().max()) == 0.0
+        split = errs(got)
+        assert max(split) <= 2e-4 and max(one) <= 2e-4, (seg, split, one)
+        assert all(s <= 1.25 * max(o, 2.5e-5) for s, o in zip(split, one)), \
+            (seg, split, one)
+
+
+def test_k2_writes_checkpoints_only_for_a_gradient(monkeypatch):
+    """A render without a gradient launches K2 once and sizes no checkpoint
+    buffer; with one, K2's images are the same bits and the backward is one
+    K3 launch in segments."""
+    _need_card("K2 and K3")
+    scene, cam, bk = _frame(n=200_000, width=640, height=480)
+    cc = composite_cuda
+    sized = []
+    rows = cc.checkpoint_rows
+    monkeypatch.setattr(cc, "checkpoint_rows",
+                        lambda n, seg: (sized.append(seg), rows(n, seg))[1])
+    before = (cc.composite_fwd.launches, cc.composite_bwd.launches)
+    with torch.no_grad():
+        plain = trender.render(scene, cam, backend="cuda", **bk)
+    torch.cuda.synchronize()
+    assert (cc.composite_fwd.launches, cc.composite_bwd.launches) == (
+        before[0] + 1, before[1])
+    assert sized == []
+    op = scene.opacity_logits.clone().requires_grad_()
+    out = trender.render(scene._replace(opacity_logits=op), cam,
+                         backend="cuda", **bk)
+    torch.mean(out["rgb"] ** 2).backward()
+    torch.cuda.synchronize()
+    assert sized and min(sized) > 0
+    assert cc.composite_bwd.launches == before[1] + 1
+    for k in ("rgb", "depth", "alpha", "semantic", "trans", "grad_chunks"):
+        assert torch.equal(out[k].detach(), plain[k]), k
+    assert float(op.grad.abs().max()) > 0
+
+
 @pytest.mark.parametrize("mode", ["f16", "bf16"])
 def test_rounded_grad_sorts_on_the_card(mode):
     """The f16 and bf16 sorts round the slot rows in place and read them
